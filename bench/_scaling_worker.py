@@ -5,9 +5,10 @@ Launched as:
 
 Each process owns <devs> virtual CPU devices; with port != "none" it joins a
 jax.distributed process group whose global mesh spans nprocs*devs devices
-(exactly the code path a real multi-host TPU run takes — only the device
-kind and the coordinator address change). It times plan_sharded over its
-local shard and writes per-host solves/s as JSON.
+(exactly the code path a real multi-host run takes — only the device kind
+and the coordinator address change). It times plan_sharded over its local
+shard and writes per-host solves/s as JSON. Workers stay on the CPU: no
+more than one JAX process opens a card.
 """
 
 import json
@@ -36,8 +37,7 @@ from tpustomp.api.problem import ProblemSpec  # noqa: E402
 from tpustomp.engine import distributed  # noqa: E402
 
 robot, world, q0, qN = config2_scene()
-cfg = config2_cfg(obstacle_backend="xla", num_timesteps=30, num_rollouts=10,
-                  max_iterations=30,
+cfg = config2_cfg(num_timesteps=30, num_rollouts=10, max_iterations=30,
                   max_iterations_after_collision_free=10**6)
 
 rng = np.random.default_rng(100 + proc_id)

@@ -1,4 +1,4 @@
-"""The paper's evaluation harness, TPU-batched: N planning problems in
+"""The paper's evaluation harness, batched: N planning problems in
 shelf/tabletop scenes, STOMP vs CHOMP success rates.
 
 Reference equivalent (SURVEY §5, §7.1): the ICRA-2011 experiments — 125
@@ -182,7 +182,7 @@ def run_suite(n=125, seed=0, scenes=("tabletop", "shelf"),
                 # problems need wide, UNdecayed exploration; h=20 sharpens
                 # the softmax once rollouts differ and roughly halves
                 # iterations-to-success (15 vs 22). "stomp-r4" adds 4
-                # parallel restarts per problem (num_restarts — the TPU
+                # parallel restarts per problem (num_restarts — the batched
                 # answer to the reference's "call the service again with a
                 # new seed").
                 from tpustomp.api.config import NoiseConfig
@@ -194,7 +194,7 @@ def run_suite(n=125, seed=0, scenes=("tabletop", "shelf"),
             else:
                 # swept at 7-DOF (docs/EXPERIMENTS.md): w_obs=20/lr=0.6 ->
                 # 0.93 vs 0.73 at the earlier w_obs=5/lr=0.3; matches
-                # configs/config3_chomp.yaml
+                # configs/config3_chomp.toml
                 cfg = config2_cfg(
                     mode="chomp", learning_rate=0.6, max_iterations=150,
                     use_pseudo_inverse=(mode == "chomp-pinv"),
@@ -233,8 +233,7 @@ def run_constrained_suite(n=125, seed=0, tol=0.25,
     """The paper's "glass of water" task at suite scale (VERDICT r4 item 3a):
     an orientation cone on the EE (axis z within `tol` rad of world-up)
     through the tabletop scene, n hard problems whose endpoints satisfy the
-    cone, solved as ONE batched call per setting on the fused time-major
-    path (the kernel emits the EE frame; solver._tm_step_eligible).
+    cone, solved as ONE batched call per setting.
 
     The artifact is a measured TRADEOFF CURVE, not one cherry-picked point
     (round-5 weight×noise probes on 16-problem subsets): the cone term

@@ -4,21 +4,21 @@ BASELINE.json configs[4]: "10k scenarios, MPC replanning loop against moving
 obstacles, multi-host". Correctness of the loop is covered by
 tests/integration/test_mpc.py; this bench produces the perf artifact
 (VERDICT r3 item 3): scenario-ticks/s (= effective replans/s — every tick
-replans every scenario), measured at >=8k scenarios on the one real chip
+replans every scenario), measured at >=8k scenarios on one device
 through the production entry (`engine.mpc.run_mpc_sharded`, 1-device mesh),
 with the same slope methodology as the config-4 numbers: per-tick time from
 the slope between two scan lengths, so fixed dispatch/gather cost cancels;
 median + spread over `reps` within-process repeats.
 
-Scenario shape follows configs/config5_mpc.yaml: 7-DOF arm, N=50 waypoints,
+Scenario shape follows configs/config5_mpc.toml: 7-DOF arm, N=50 waypoints,
 K=16 rollouts + 4 reused, 8 solver iterations per replan, world_dt=0.1 s,
 one moving sphere per scenario (speed 0.2 m/s, random direction) over the
 config-2 static tabletop — a CompositeWorld-free analytic compose, so the
 per-tick world advance is a pytree update (SURVEY §8.3 hard part 6).
 
-B=8192 fits the chip comfortably (the candidate tensor is
-[T=52, d=7, B*21] ~ 250 MB fp32); 10k-scenario pod runs shard this same
-program over hosts with zero in-loop collectives.
+B=8192 fits one device comfortably (the candidate tensor is
+[T=52, d=7, B*21] ~ 250 MB fp32); 10k-scenario runs shard this same
+program over devices with zero in-loop collectives.
 """
 
 import sys
@@ -50,9 +50,8 @@ def _scene(grid):
 def _cfg5():
     from tpustomp.api.config import CostWeights, NoiseConfig, PlannerConfig
 
-    # mirrors configs/config5_mpc.yaml (swept exploration, round 5): the
-    # per-tick cost is iteration-count-fixed, so throughput is unchanged vs
-    # the pre-sweep values while episode collision rate drops 3.3x
+    # mirrors configs/config5_mpc.toml (swept exploration, round 5): the
+    # per-tick cost is iteration-count-fixed
     return PlannerConfig(
         num_timesteps=50, duration=3.0, num_rollouts=16, pi2_h=20.0,
         noise=NoiseConfig(stddev=0.25, decay=1.0, num_rollouts_reused=4),

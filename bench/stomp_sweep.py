@@ -6,7 +6,7 @@ backwards from the ICRA-2011 headline (STOMP solves all/nearly all where
 gradient CHOMP gets stuck). This sweep grids the PI² exploration knobs at
 equal iteration budget to find whether hyperparameters close the gap.
 
-TPU-native mechanics: (noise_stddev scale, h, decay) are TRACED per-scenario
+Mechanics: (noise_stddev scale, h, decay) are TRACED per-scenario
 values (solver.HyperParams), so the whole grid × 125 problems is ONE batched
 solve — G=36 cells × 125 = 4500 scenarios in a single compile + launch —
 instead of 36 recompiles of a static-config program. Static knobs that
@@ -48,7 +48,6 @@ def sweep_scene(robot, world, q0s, qNs, n, seed=0, num_rollouts=50,
                 cost_mode="local", max_iterations=150):
     """One traced-grid sweep: returns {cell_label: success_rate}."""
     from tpustomp.api.config import NoiseConfig
-    from tpustomp.api.plan import resolve_backend
     from tpustomp.dynamics.device import device_ops
     from tpustomp.engine import solver
 
@@ -59,7 +58,6 @@ def sweep_scene(robot, world, q0s, qNs, n, seed=0, num_rollouts=50,
         pi2_cost_mode=cost_mode,
         noise=NoiseConfig(stddev=BASE_STD, decay=0.995,
                           num_rollouts_reused=5))
-    cfg = resolve_backend(cfg, robot, world, batch_hint=G * n)
     ops = device_ops(cfg.num_timesteps, cfg.dt, cfg.smoothness)
 
     Q0 = jnp.asarray(np.tile(q0s, (G, 1)))          # [G*n, d], cell-major
@@ -129,7 +127,6 @@ def sweep_one(robot, world, q0s, qNs, n, seed, std, h, decay,
               num_rollouts=50, cost_mode="local", max_iterations=150):
     """Solve the suite at ONE hyper cell under static-knob variations."""
     from tpustomp.api.config import NoiseConfig
-    from tpustomp.api.plan import resolve_backend
     from tpustomp.dynamics.device import device_ops
     from tpustomp.engine import solver
 
@@ -137,7 +134,6 @@ def sweep_one(robot, world, q0s, qNs, n, seed, std, h, decay,
         max_iterations=max_iterations, num_rollouts=num_rollouts,
         pi2_cost_mode=cost_mode,
         noise=NoiseConfig(stddev=std, decay=decay, num_rollouts_reused=5))
-    cfg = resolve_backend(cfg, robot, world, batch_hint=n)
     ops = device_ops(cfg.num_timesteps, cfg.dt, cfg.smoothness)
     keys = jax.random.split(jax.random.PRNGKey(seed), n)
     hyper = solver.HyperParams(

@@ -1,6 +1,6 @@
 """Plan a 7-DOF arm over a tabletop scene (BASELINE config 2) and dump plots.
 
-Run:  python examples/plan_tabletop.py            (TPU or CPU)
+Run:  python examples/plan_tabletop.py            (GPU or CPU)
 """
 
 import os as _os

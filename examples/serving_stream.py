@@ -1,8 +1,7 @@
 """Serving-loop tour: pipelined stream, success=1.0 retry, auto-tuning.
 
 The three round-4 serving entry points on a small planar scene (runs on
-CPU in seconds; on TPU the same code is the measured 0.99-efficiency
-per-host loop — docs/PERFORMANCE.md):
+CPU in seconds; on a GPU the same code is the per-host serving loop):
 
   1. `tune()` grids (noise, h, decay) over a problem set as ONE batched
      solve and bakes the winner into the config;
@@ -45,11 +44,7 @@ def main():
     world = AnalyticWorld.make(spheres=[((1.88, 0.42, 0.0), 0.27)])
     cfg = PlannerConfig(
         num_timesteps=16, duration=1.7, num_rollouts=6,
-        # throughput knob for TPU serving: prng_impl="rbg" swaps the noise
-        # draw onto the hardware RNG (batched step -8% at B=256; batch-level
-        # stream semantics — see NoiseConfig.prng_impl)
-        noise=NoiseConfig(stddev=0.12, decay=0.99, num_rollouts_reused=2,
-                          prng_impl="rbg"),
+        noise=NoiseConfig(stddev=0.12, decay=0.99, num_rollouts_reused=2),
         weights=CostWeights(obstacle=1.0, smoothness=0.1),
         collision_clearance=0.1, max_iterations=10,
         max_iterations_after_collision_free=3, record_metrics=False)

@@ -1,12 +1,12 @@
 """Auto-tune STOMP exploration for a scene, then plan with the winner.
 
 The documented path for new robots/scenes (VERDICT r4 item 4): the shipped
-YAML exploration values were found by exactly this machinery
+config-file exploration values were found by exactly this machinery
 (bench/stomp_sweep.py at 72 cells x 125 problems); `api.tune.tune()` is the
 public one-call form — the whole hyperparameter grid solves as ONE batched
 call (traced per-scenario hyperparameters, engine/solver.HyperParams).
 
-Run: python examples/tune_and_plan.py        (~1 min on a TPU chip)
+Run: python examples/tune_and_plan.py
 """
 
 import os as _os

@@ -1,10 +1,9 @@
 """Compile a voxel occupancy grid into analytic boxes and plan on it.
 
 The gather-free path for static voxel scenes (world/decompose.py): the
-voxel SDF query is per-index issue-bound on TPU (~55–67M samples/s,
-docs/PERFORMANCE.md round 5), while SMEM-resident analytic primitives run
-at VPU rate in the fused kernel — ~10–40× faster on scenes that decompose
-well. A tabletop occupancy decomposes to exactly 2 boxes.
+voxel SDF query gathers one table row per sample, while analytic
+primitives are evaluated in closed form. A tabletop occupancy decomposes to
+exactly 2 boxes.
 
 Run: python examples/voxel_to_boxes.py
 """

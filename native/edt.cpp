@@ -7,7 +7,7 @@
 // space queries (SURVEY.md §3.2). That implementation propagates distances
 // incrementally cell-by-cell; this one computes the exact EDT in three O(n)
 // separable passes, parallelized across lines with std::thread — offline
-// host work whose output grid ships to the TPU once per scene.
+// host work whose output grid ships to the device once per scene.
 //
 // Build: see native/Makefile (g++ -O3 -shared). ABI: plain C, used via ctypes.
 

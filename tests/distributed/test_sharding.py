@@ -87,7 +87,7 @@ def test_summarize_reductions():
 def test_sharded_hyper_matches_unsharded():
     """Per-scenario hyperparameters shard with their scenarios: a sharded
     hyper solve equals the single-device solve_batch(hyper=...) run — the
-    pod-scale form of api/tune.py's grid-as-a-batch."""
+    mesh-scale form of api/tune.py's grid-as-a-batch."""
     from tpustomp.dynamics.device import device_ops
     from tpustomp.engine import solver
 
@@ -112,42 +112,6 @@ def test_sharded_hyper_matches_unsharded():
     np.testing.assert_allclose(np.asarray(sol_sharded.trajectory),
                                np.asarray(sol_ref.trajectory), atol=2e-6)
     assert len(sol_sharded.trajectory.sharding.device_set) == 8
-
-
-def test_sharded_rbg_draw_partitions():
-    """Regression for the fold's SPMD-partitionability: an xor lax.reduce
-    over a SHARDED scenario axis is rejected by XLA's partitioner
-    ("Unsupported reduction computation"), which is why
-    engine/sampling.rbg_block_key uses a uint32 add-fold. This test jits
-    the rbg draw with explicitly sharded keys/sigma and sharded output —
-    the exact configuration that failed — and checks it compiles, keeps
-    the scenario sharding, and honors the per-scenario sigma scale.
-    (An e2e sharded-rbg drive only exercises the branch on TPU, where the
-    pallas tm path is eligible; on the CPU mesh plan_sharded resolves to
-    the xla backend and would silently test threefry.)"""
-    from jax.sharding import NamedSharding, PartitionSpec as P
-    from tpustomp.engine.sampling import sample_noise_tm
-
-    mesh = distributed.make_mesh()
-    B, d, K, N = 64, 3, 8, 16
-    keys = jax.device_put(jax.random.split(jax.random.PRNGKey(0), B),
-                          NamedSharding(mesh, P(distributed.SCENARIO_AXIS)))
-    sigma = jax.device_put(
-        jnp.concatenate([jnp.full((B // 2, d), 0.1),
-                         jnp.full((B // 2, d), 0.4)]),
-        NamedSharding(mesh, P(distributed.SCENARIO_AXIS)))
-    L = jnp.eye(N)
-    f = jax.jit(lambda k, s: sample_noise_tm(k, L, s, K, impl="rbg"),
-                out_shardings=NamedSharding(
-                    mesh, P(None, None, distributed.SCENARIO_AXIS, None)))
-    eps = f(keys, sigma)                                   # [N, d, B, K]
-    assert len(eps.sharding.device_set) == 8
-    e = np.asarray(eps)
-    assert np.isfinite(e).all()
-    # per-scenario sigma scaling survives the partitioned block draw
-    lo = float(np.std(e[:, :, :B // 2]))
-    hi = float(np.std(e[:, :, B // 2:]))
-    assert 2.5 < hi / lo < 5.5, (lo, hi)
 
 
 def test_plan_sharded_accepts_typed_keys():

@@ -1,7 +1,8 @@
-"""CLI runner (the reference node analogue) on the shipped YAML configs."""
+"""CLI runner (the reference node analogue) on the shipped TOML configs."""
 
 import json
 import os
+import tomllib
 
 import pytest
 
@@ -10,16 +11,58 @@ from tpustomp.cli import main
 CONFIGS = os.path.join(os.path.dirname(__file__), "..", "..", "configs")
 
 
-def test_cli_config1(capsys):
-    rc = main([os.path.join(CONFIGS, "config1_planar.yaml"), "--seed", "0"])
+def _toml_value(v):
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, (int, float)):
+        return repr(v)
+    if isinstance(v, str):
+        return json.dumps(v)
+    if isinstance(v, dict):
+        return "{" + ", ".join(f"{k} = {_toml_value(x)}"
+                               for k, x in v.items()) + "}"
+    return "[" + ", ".join(_toml_value(x) for x in v) + "]"
+
+
+def _write_toml(path, doc):
+    """Write a {section: {key: value}} document as TOML (tests only: the
+    standard library reads TOML but does not write it)."""
+    lines = []
+    for section, table in doc.items():
+        lines.append(f"[{section}]")
+        lines += [f"{k} = {_toml_value(v)}" for k, v in table.items()]
+    path.write_text("\n".join(lines) + "\n")
+    assert tomllib.loads(path.read_text()) == doc
+
+
+@pytest.fixture(autouse=True)
+def cache_calls(monkeypatch):
+    """main() turns the persistent compile cache on; record the call
+    instead, so test compiles stay off the disk."""
+    import tpustomp.utils.cache as cache
+
+    calls = []
+    monkeypatch.setattr(cache, "enable_compile_cache",
+                        lambda: calls.append(True))
+    return calls
+
+
+def _load(name):
+    with open(os.path.join(CONFIGS, name), "rb") as f:
+        return tomllib.load(f)
+
+
+def test_cli_config1(capsys, cache_calls):
+    rc = main([os.path.join(CONFIGS, "config1_planar.toml"), "--seed", "0"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0
+    assert cache_calls == [True]
     assert out["success"] is True
     assert out["iterations"] > 0
 
 
 def test_cli_config1_chomp(capsys):
-    rc = main([os.path.join(CONFIGS, "config1_planar.yaml"),
+    rc = main([os.path.join(CONFIGS, "config1_planar.toml"),
                "--mode", "chomp"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     # CHOMP with config-1's STOMP-tuned weights may or may not solve this
@@ -28,7 +71,7 @@ def test_cli_config1_chomp(capsys):
 
 
 def test_cli_config2_grid(capsys):
-    rc = main([os.path.join(CONFIGS, "config2_tabletop.yaml"), "--grid"])
+    rc = main([os.path.join(CONFIGS, "config2_tabletop.toml"), "--grid"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0
     assert out["success"] is True
@@ -36,7 +79,7 @@ def test_cli_config2_grid(capsys):
 
 def test_cli_config4_batch(capsys):
     """BASELINE config 4 from the CLI: sharded scenario batch."""
-    rc = main([os.path.join(CONFIGS, "config4_batch.yaml"),
+    rc = main([os.path.join(CONFIGS, "config4_batch.toml"),
                "--scenarios", "8"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0
@@ -44,35 +87,23 @@ def test_cli_config4_batch(capsys):
     assert out["success_rate"] > 0.5
 
 
-def test_cli_config5_mpc(capsys):
+def test_cli_config5_mpc(capsys, tmp_path):
     """BASELINE config 5 from the CLI: moving-obstacle MPC loop (tiny)."""
-    import yaml
-
-    path = os.path.join(CONFIGS, "config5_mpc.yaml")
-    with open(path) as f:
-        doc = yaml.safe_load(f)
+    doc = _load("config5_mpc.toml")
     doc["mpc"]["ticks"] = 10
-    small = os.path.join(os.path.dirname(__file__), "_cfg5_small.yaml")
-    with open(small, "w") as f:
-        yaml.safe_dump(doc, f)
-    try:
-        rc = main([small, "--scenarios", "8"])
-        out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-        assert rc == 0
-        assert out["scenarios"] == 8 and out["ticks"] == 10
-        assert 0.0 <= out["collision_rate"] <= 1.0
-    finally:
-        os.remove(small)
+    small = tmp_path / "cfg5_small.toml"
+    _write_toml(small, doc)
+    rc = main([str(small), "--scenarios", "8"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0
+    assert out["scenarios"] == 8 and out["ticks"] == 10
+    assert 0.0 <= out["collision_rate"] <= 1.0
 
 
-def test_cli_config5_mpc_grid(capsys):
+def test_cli_config5_mpc_grid(capsys, tmp_path):
     """--grid mpc: the voxel scene rides as the CompositeWorld static grid
     (round 5 — previously rejected); a coarse grid keeps the test fast."""
-    import yaml
-
-    path = os.path.join(CONFIGS, "config5_mpc.yaml")
-    with open(path) as f:
-        doc = yaml.safe_load(f)
+    doc = _load("config5_mpc.toml")
     doc["mpc"]["ticks"] = 5
     doc["scene"] = {
         "robot": "arm_7dof",
@@ -82,25 +113,21 @@ def test_cli_config5_mpc_grid(capsys):
         "q0": [-0.6, 0.5, 0.0, -0.8, 0.0, -0.5, 0.0],
         "qN": [0.4, 0.5, 0.0, -0.8, 0.0, -0.5, 0.0],
     }
-    small = os.path.join(os.path.dirname(__file__), "_cfg5_grid_small.yaml")
-    with open(small, "w") as f:
-        yaml.safe_dump(doc, f)
-    try:
-        rc = main([small, "--grid", "--scenarios", "8"])
-        out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-        assert rc == 0
-        assert out["scenarios"] == 8 and out["ticks"] == 5
-        assert "reached_rate" in out and "median_ticks_to_goal" in out
-    finally:
-        os.remove(small)
+    small = tmp_path / "cfg5_grid_small.toml"
+    _write_toml(small, doc)
+    rc = main([str(small), "--grid", "--scenarios", "8"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0
+    assert out["scenarios"] == 8 and out["ticks"] == 5
+    assert "reached_rate" in out and "median_ticks_to_goal" in out
 
 
-def test_cli_mpc_grid_keeps_scene_spheres_as_movers(capsys, monkeypatch):
+def test_cli_mpc_grid_keeps_scene_spheres_as_movers(capsys, monkeypatch,
+                                                    tmp_path):
     """--grid mpc: the scene's spheres must remain the per-scenario MOVING
     obstacles (the function's contract) while only the static boxes are
     voxelized — round-5 fix: previously the whole scene (spheres included)
     was frozen into the grid and a spurious default mover launched."""
-    import yaml
     import numpy as np
     from tpustomp.engine import mpc as mpc_mod
     from tpustomp.world.sdf import GridSDF
@@ -132,15 +159,11 @@ def test_cli_mpc_grid_keeps_scene_spheres_as_movers(capsys, monkeypatch):
         "mpc": {"scenarios": 4, "ticks": 3, "world_dt": 0.1,
                 "obstacle_speed": 0.2},
     }
-    small = os.path.join(os.path.dirname(__file__), "_cfg5_spheres.yaml")
-    with open(small, "w") as f:
-        yaml.safe_dump(doc, f)
-    try:
-        rc = main([small, "--grid", "--scenarios", "4"])
-        assert rc == 0
-        json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    finally:
-        os.remove(small)
+    small = tmp_path / "cfg5_spheres.toml"
+    _write_toml(small, doc)
+    rc = main([str(small), "--grid", "--scenarios", "4"])
+    assert rc == 0
+    json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
     # the scene sphere is the mover, not a default at [0.9, 0.6, 0.5]
     centers = np.asarray(captured["states"].sphere_center)  # [B, S, 3]

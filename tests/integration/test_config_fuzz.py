@@ -26,7 +26,9 @@ from tpustomp.robot import model
 from tpustomp.world.sdf import AnalyticWorld
 
 
-def _random_config(rng: np.random.Generator) -> PlannerConfig:
+def _random_config(rng: np.random.Generator) -> tuple[PlannerConfig, bool]:
+    """A random valid config, and whether to also drive it through the
+    batched path (plan_batch)."""
     mode = rng.choice(["stomp", "stomp", "stomp", "chomp"])  # stomp-weighted
     smoothness = SmoothnessConfig(
         weight_velocity=float(rng.choice([0.0, 0.5])),
@@ -39,9 +41,9 @@ def _random_config(rng: np.random.Generator) -> PlannerConfig:
         stddev=float(rng.uniform(0.1, 0.3)),
         decay=float(rng.choice([1.0, 0.99])),
         num_rollouts_reused=int(rng.choice([0, 2, 4])),
-        prng_impl=str(rng.choice(["threefry", "rbg"])),
     )
-    return PlannerConfig(
+    batched = bool(rng.choice([False, True]))
+    cfg = PlannerConfig(
         num_timesteps=int(rng.choice([10, 14])),
         duration=float(rng.choice([2.0, 5.0])),
         max_iterations=25,
@@ -60,6 +62,7 @@ def _random_config(rng: np.random.Generator) -> PlannerConfig:
         joint_limit_iterations=int(rng.choice([2, 5])),
         record_metrics=bool(rng.choice([False, True])),
     )
+    return cfg, batched
 
 
 SEEDS = list(range(10))
@@ -68,7 +71,7 @@ SEEDS = list(range(10))
 @pytest.mark.parametrize("seed", SEEDS)
 def test_random_config_solves_with_invariants(seed):
     rng = np.random.default_rng(seed)
-    cfg = _random_config(rng)
+    cfg, batched = _random_config(rng)
     robot = model.planar_2r(masses=(1.0, 1.0))  # masses: torque-cost ready
     world = AnalyticWorld.make(spheres=[((1.0, 0.8, 0.0), 0.2)])
     q0 = jnp.zeros(2)
@@ -100,25 +103,18 @@ def test_random_config_solves_with_invariants(seed):
     # iteration count inside the budget
     assert 0 < int(sol.iterations) <= cfg.max_iterations
 
-    # prng_impl="rbg" only has an effect on the batched time-major pallas
-    # path (solver.make_step_batch_tm) — the single-scenario plan() above
-    # runs threefry regardless. For the sampled rbg configs, ALSO drive the
-    # path where the flag is live (interpret-mode kernel on CPU) and hold
-    # the same invariants there.
-    if (cfg.noise.prng_impl == "rbg" and cfg.mode == "stomp"
-            and cfg.weights.torque == 0.0):
+    # STOMP configs drawn for it ALSO run the batched path (one solver
+    # loop over the whole batch, solver.solve_batch) under the same
+    # invariants.
+    if batched and cfg.mode == "stomp":
         from tpustomp.api.plan import plan_batch
-        from tpustomp.engine.solver import _tm_step_eligible
 
-        cfg_tm = cfg.replace(obstacle_backend="pallas",
-                             pallas_interpret=True)
-        assert _tm_step_eligible(robot, world, None, cfg_tm)
         probB = ProblemSpec(q0=jnp.stack([q0, q0 + 0.01]),
                             qN=jnp.stack([qN, qN - 0.01]))
-        solB = plan_batch(robot, world, probB, cfg_tm,
+        solB = plan_batch(robot, world, probB, cfg,
                           keys=jax.random.split(jax.random.PRNGKey(seed), 2))
         trajB = np.asarray(solB.trajectory)
-        assert np.isfinite(trajB).all(), cfg_tm
+        assert np.isfinite(trajB).all(), cfg
         np.testing.assert_allclose(trajB[:, 0], np.asarray(probB.q0),
                                    atol=1e-6)
         np.testing.assert_allclose(trajB[:, -1], np.asarray(probB.qN),
@@ -127,15 +123,14 @@ def test_random_config_solves_with_invariants(seed):
 
 def test_fuzz_covers_both_modes_and_impls():
     """Guard the sweep's coverage: the sampled set must include both solver
-    modes, both prng impls, and both limit methods (so a refactor of
-    _random_config can't silently shrink what the fuzz exercises). The rbg
-    check demands a config that actually REACHES the rbg branch — stomp
-    mode with torque off, the condition under which the per-seed test
-    drives the time-major pallas path where prng_impl is live."""
-    cfgs = [_random_config(np.random.default_rng(s)) for s in SEEDS]
+    modes, STOMP configs on the batched path, and both limit methods (so a
+    refactor of _random_config can't silently shrink what the fuzz
+    exercises)."""
+    drawn = [_random_config(np.random.default_rng(s)) for s in SEEDS]
+    cfgs = [c for c, _ in drawn]
     assert {c.mode for c in cfgs} == {"stomp", "chomp"}
-    assert any(c.noise.prng_impl == "rbg" and c.mode == "stomp"
-               and c.weights.torque == 0.0 for c in cfgs)
-    assert {c.noise.prng_impl for c in cfgs} == {"threefry", "rbg"}
+    assert any(b and c.mode == "stomp" for c, b in drawn)
+    assert any(b and c.mode == "stomp" and c.weights.torque > 0.0
+               for c, b in drawn)
     assert {c.joint_limit_method for c in cfgs} == {"jacobi", "sequential"}
     assert {c.smoothness.stencil for c in cfgs} == {"fd3", "fd5", "fd7"}

@@ -258,47 +258,3 @@ def test_goal_flush_reaches_exactly_and_yields_to_obstacles():
     np.testing.assert_array_equal(pick(near, 0.2), np.asarray(theta_f))
     np.testing.assert_array_equal(pick(near, -0.01), np.asarray(theta_r))
     np.testing.assert_array_equal(pick(far, 0.2), np.asarray(theta_r))
-
-
-def test_mpc_resilient_recovery_parity_under_rbg_stream():
-    """The opt-in rbg noise stream is BATCH-level (rbg_block_key folds the
-    whole batch's keys), so a subset re-dispatch would give retried rows a
-    different noise stream. Recovery must replay the FULL batch from the
-    snapshot (round-5 fix) so recovered == never-failed holds exactly."""
-    import dataclasses
-
-    robot = model.planar_2r(body_radius=0.05)
-    cfg = _cfg().replace(
-        obstacle_backend="pallas", pallas_interpret=True,
-        noise=dataclasses.replace(_cfg().noise, prng_impl="rbg"))
-    B = 8
-    radius = np.asarray([0.25], np.float32)
-
-    clean = mpc.run_mpc_sharded(robot, cfg, _batched_states(robot, cfg, B),
-                                radius, num_ticks=6, world_dt=0.1,
-                                mesh=make_mesh())
-    # sanity: the rbg stream is actually live on this path (differs from
-    # threefry on identical setup) — otherwise this test pins nothing
-    tf = mpc.run_mpc_sharded(robot, cfg.replace(
-                                 noise=dataclasses.replace(
-                                     cfg.noise, prng_impl="threefry")),
-                             _batched_states(robot, cfg, B),
-                             radius, num_ticks=6, world_dt=0.1,
-                             mesh=make_mesh())
-    assert not np.allclose(np.asarray(clean.theta), np.asarray(tf.theta))
-
-    def fault(chunk_idx, out):
-        if chunk_idx == 0:
-            out.theta[2] = np.nan
-            out.q[5] = np.nan
-        return out
-
-    rec = mpc.run_mpc_resilient(robot, cfg, _batched_states(robot, cfg, B),
-                                radius, num_ticks=6, world_dt=0.1,
-                                mesh=make_mesh(), chunk_ticks=3,
-                                _fault_hook=fault)
-    np.testing.assert_array_equal(np.asarray(rec.q), np.asarray(clean.q))
-    np.testing.assert_array_equal(np.asarray(rec.theta),
-                                  np.asarray(clean.theta))
-    np.testing.assert_array_equal(np.asarray(rec.collided),
-                                  np.asarray(clean.collided))

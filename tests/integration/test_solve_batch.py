@@ -35,7 +35,7 @@ def _cfg(**kw):
         noise=NoiseConfig(stddev=0.35, decay=0.995, num_rollouts_reused=3),
         weights=CostWeights(obstacle=1.0, smoothness=0.1),
         collision_clearance=0.05, max_iterations=40,
-        max_iterations_after_collision_free=3, obstacle_backend="xla",
+        max_iterations_after_collision_free=3,
     )
     base.update(kw)
     return PlannerConfig(**base)

@@ -1,6 +1,6 @@
-"""Torque cost (A.8) end-to-end: weights.torque > 0 through real solves on
-both backends — the branch in solver._evaluate / _evaluate_fulls_pallas
-that r4 never exercised beyond unit tests (VERDICT r4 missing #4).
+"""Torque cost (A.8) end-to-end: weights.torque > 0 through real solves —
+the branch in solver._evaluate that r4 never exercised beyond unit tests
+(VERDICT r4 missing #4).
 """
 
 import numpy as np
@@ -11,8 +11,6 @@ from tpustomp.api.config import CostWeights, NoiseConfig, PlannerConfig
 from tpustomp.api.plan import plan
 from tpustomp.api.problem import ProblemSpec
 from tpustomp.costs.torque import joint_derivatives, rne_torques
-from tpustomp.dynamics.device import device_ops
-from tpustomp.engine import solver
 from tpustomp.robot import model
 from tpustomp.world.sdf import AnalyticWorld
 
@@ -20,14 +18,13 @@ Q0 = np.array([-0.56, 1.65], np.float32)
 QN = np.array([1.16, -1.46], np.float32)
 
 
-def _cfg(torque_w, backend="xla", interpret=False):
+def _cfg(torque_w):
     return PlannerConfig(
         num_timesteps=20, duration=2.1, num_rollouts=10,
         noise=NoiseConfig(stddev=0.25, decay=0.995, num_rollouts_reused=3),
         weights=CostWeights(obstacle=1.0, smoothness=0.1, torque=torque_w),
         collision_clearance=0.1, max_iterations=40,
-        max_iterations_after_collision_free=5, record_metrics=False,
-        obstacle_backend=backend, pallas_interpret=interpret)
+        max_iterations_after_collision_free=5, record_metrics=False)
 
 
 def _peak_torque(robot, sol, dt):
@@ -56,30 +53,3 @@ def test_torque_weight_reduces_torque_integral_and_solves():
     assert t_tq < t_base, (t_tq, t_base)
     assert not np.allclose(np.asarray(base.trajectory),
                            np.asarray(tq.trajectory))
-
-
-def test_torque_branch_on_pallas_backend_matches_xla():
-    """weights.torque > 0 with the fused backend grafts a vmapped XLA RNE
-    stage onto the kernel path (_evaluate_fulls_pallas); it must agree with
-    the pure-XLA backend (r4 weak #6: this combination had no test)."""
-    robot = model.planar_2r(body_radius=0.05, masses=(1.0, 1.0))
-    world = AnalyticWorld.make(spheres=[((1.88, 0.42, 0.0), 0.27)])
-    cfg_p = _cfg(0.005, backend="pallas", interpret=True)
-    cfg_x = _cfg(0.005, backend="xla")
-    ops = device_ops(cfg_p.num_timesteps, cfg_p.dt, cfg_p.smoothness)
-    B = 4
-    rng = np.random.default_rng(2)
-    Q0b = jnp.asarray(np.tile(Q0, (B, 1))
-                      + rng.uniform(-0.05, 0.05, (B, 2)), jnp.float32)
-    QNb = jnp.asarray(np.tile(QN, (B, 1))
-                      + rng.uniform(-0.05, 0.05, (B, 2)), jnp.float32)
-    keys = jax.random.split(jax.random.PRNGKey(1), B)
-    # torque > 0 makes the tm path ineligible -> scenario-major pallas step
-    assert not solver._tm_step_eligible(robot, world, None, cfg_p)
-    got = solver.solve_batch(robot, world, None, cfg_p, ops, Q0b, QNb, keys)
-    ref = solver.solve_batch(robot, world, None, cfg_x, ops, Q0b, QNb, keys)
-    np.testing.assert_array_equal(np.asarray(got.success),
-                                  np.asarray(ref.success))
-    np.testing.assert_allclose(np.asarray(got.trajectory),
-                               np.asarray(ref.trajectory),
-                               rtol=1e-4, atol=1e-4)

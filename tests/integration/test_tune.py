@@ -63,16 +63,15 @@ def test_tune_grid_and_bake_in():
 def test_best_config_preserves_noise_fields():
     """best_config must bake the winning cell onto the ORIGINAL NoiseConfig
     (round-5 fix): per-joint sigma ratios scale with the cell and the
-    prng_impl opt-in survives, so the tuned config reproduces the cell."""
+    other noise fields survive, so the tuned config reproduces the cell."""
     from tpustomp.api.tune import TuneResult
 
     base = PlannerConfig(noise=NoiseConfig(
         stddev=0.1, stddev_per_joint=(0.1, 0.02), decay=0.99,
-        num_rollouts_reused=3, prng_impl="rbg"))
+        num_rollouts_reused=3))
     out = TuneResult(best=(2.0, 20.0, 1.0), table={}).best_config(base)
     assert out.noise.stddev_per_joint == (0.2, 0.04)
     assert out.noise.stddev == 0.2
-    assert out.noise.prng_impl == "rbg"
     assert out.noise.num_rollouts_reused == 3
     assert out.noise.decay == 1.0 and out.pi2_h == 20.0
     # noise_stddevs (what the solver consumes) matches the evaluated cell

@@ -318,3 +318,94 @@ def stomp_solve_config1(q0, qN, N, T, z_seq, sphere_c, sphere_r,
             theta, q0, qN, dt, weights)
         history.append(total)
     return theta, np.array(history)
+
+
+# --------------------------------------------------------------- chain FK + SDF
+# A general serial chain, as plain arrays (the fields of RobotSpec):
+#   joint_type [d] (0 revolute, 1 prismatic), joint_axis [d, 3],
+#   joint_offset [d, 3], joint_rot [d, 3, 3], base_pos [3], base_rot [3, 3],
+#   body_link [B], body_offset [B, 3], body_radius [B].
+# Joint i's frame: T_i = T_{i-1} · Trans(offset_i) · RotFixed_i · Joint(q_i).
+def rotation(axis, angle):
+    """Rotation about unit `axis` by `angle` (axis-angle, Rodrigues)."""
+    x, y, z = axis
+    K = np.array([[0.0, -z, y], [z, 0.0, -x], [-y, x, 0.0]])
+    return np.eye(3) + np.sin(angle) * K + (1.0 - np.cos(angle)) * (K @ K)
+
+
+def chain_body_positions(chain, q):
+    """World positions [B, 3] of the sphere bodies at configuration q [d]."""
+    p = np.asarray(chain["base_pos"], float)
+    R = np.asarray(chain["base_rot"], float)
+    frames_p, frames_R = [], []
+    for i in range(len(q)):
+        p = p + R @ chain["joint_offset"][i]
+        R = R @ chain["joint_rot"][i]
+        if chain["joint_type"][i] == 1:             # prismatic
+            p = p + (R @ chain["joint_axis"][i]) * q[i]
+        else:                                       # revolute
+            R = R @ rotation(chain["joint_axis"][i], q[i])
+        frames_p.append(p)
+        frames_R.append(R)
+    out = np.zeros((len(chain["body_link"]), 3))
+    for b, link in enumerate(chain["body_link"]):
+        out[b] = frames_p[link] + frames_R[link] @ chain["body_offset"][b]
+    return out
+
+
+def trilinear_many(grid, origin, resolution, pts):
+    """`trilinear` at every point of pts [..., 3]."""
+    flat = np.asarray(pts, float).reshape(-1, 3)
+    vals = [trilinear(grid, origin, resolution, p) for p in flat]
+    return np.asarray(vals).reshape(np.shape(pts)[:-1])
+
+
+def world_sdf(world, pts):
+    """Signed distance at pts [..., 3] to a world given as a dict with
+    optional "spheres" (centers [S, 3], radii [S]), "boxes" (centers [X, 3],
+    half extents [X, 3]) and "grid" (values [X, Y, Z], origin [3],
+    resolution); the union of all present parts. An empty world is 1e6."""
+    pts = np.asarray(pts, float)
+    d = np.full(pts.shape[:-1], 1e6)
+    if "spheres" in world:
+        c, r = world["spheres"]
+        for ci, ri in zip(c, r):
+            d = np.minimum(d, np.linalg.norm(pts - ci, axis=-1) - ri)
+    if "boxes" in world:
+        c, h = world["boxes"]
+        for ci, hi in zip(c, h):
+            q = np.abs(pts - ci) - hi
+            outside = np.linalg.norm(np.maximum(q, 0.0), axis=-1)
+            inside = np.minimum(q.max(axis=-1), 0.0)
+            d = np.minimum(d, outside + inside)
+    if "grid" in world:
+        d = np.minimum(d, trilinear_many(*world["grid"], pts))
+    return d
+
+
+def obstacle_cost_chain(chain, world, full, dt, clearance):
+    """A.4/A.5 obstacle cost of one full trajectory full [T, d]: the
+    potential of each body's clearance, weighted by its workspace speed.
+    Returns (q_obs [T], margin), margin = min over waypoints and bodies of
+    signed distance minus body radius."""
+    pos = np.stack([chain_body_positions(chain, q) for q in full])  # [T,B,3]
+    speed = np.linalg.norm(workspace_velocity(pos, dt), axis=-1)     # [T, B]
+    dist = world_sdf(world, pos)                                     # [T, B]
+    radius = np.asarray(chain["body_radius"], float)
+    q_obs = (potential(dist - radius - clearance, clearance)
+             * speed).sum(axis=1) * dt
+    return q_obs, float((dist - radius).min())
+
+
+def control_cost_rows(theta, q0, qN, dt, weights=(0.0, 1.0, 0.0),
+                      stencil="fd3"):
+    """Smoothness cost resolved per true waypoint [N+2]; sums to
+    `smoothness_cost`."""
+    rows = np.zeros(theta.shape[0] + 2)
+    for j in range(theta.shape[1]):
+        for order, w in zip((1, 2, 3), weights):
+            if w == 0.0:
+                continue
+            dv = derivative(theta[:, j], q0[j], qN[j], order, dt, stencil)
+            rows += 0.5 * w * dv * dv
+    return rows

@@ -19,7 +19,7 @@ from tpustomp.robot import model
 from tpustomp.world.sdf import AnalyticWorld
 
 
-def _scene(backend="xla", **kw):
+def _scene(**kw):
     robot = model.planar_2r(body_radius=0.05)
     world = AnalyticWorld.make(spheres=[((1.88, 0.42, 0.0), 0.27)])
     base = dict(
@@ -27,9 +27,7 @@ def _scene(backend="xla", **kw):
         noise=NoiseConfig(stddev=0.25, decay=0.995, num_rollouts_reused=2),
         weights=CostWeights(obstacle=1.0, smoothness=0.1),
         collision_clearance=0.1, max_iterations=12,
-        max_iterations_after_collision_free=4, record_metrics=False,
-        obstacle_backend=backend,
-        pallas_interpret=(backend == "pallas"))
+        max_iterations_after_collision_free=4, record_metrics=False)
     base.update(kw)
     cfg = PlannerConfig(**base)
     ops = device_ops(cfg.num_timesteps, cfg.dt, cfg.smoothness)
@@ -88,29 +86,3 @@ def test_hyper_changes_behavior():
                                  decay=jnp.float32(1.0)))
     assert not np.allclose(np.asarray(base.trajectory),
                            np.asarray(hot.trajectory))
-
-
-def test_tm_path_hyper_matches_vmap_solve():
-    robot, world, cfg, ops = _scene(backend="pallas")
-    B = 4
-    rng = np.random.default_rng(5)
-    Q0b = jnp.asarray(np.tile(Q0, (B, 1))
-                      + rng.uniform(-0.05, 0.05, (B, 2)), jnp.float32)
-    QNb = jnp.asarray(np.tile(QN, (B, 1))
-                      + rng.uniform(-0.05, 0.05, (B, 2)), jnp.float32)
-    keys = jax.random.split(jax.random.PRNGKey(4), B)
-    hyper = solver.HyperParams(
-        noise_scale=jnp.asarray([1.0, 0.75, 1.25, 1.0], jnp.float32),
-        h=jnp.asarray([10.0, 6.0, 15.0, 10.0], jnp.float32),
-        decay=jnp.asarray([0.995, 1.0, 0.99, 0.995], jnp.float32))
-    got = solver.solve_batch(robot, world, None, cfg, ops, Q0b, QNb, keys,
-                             hyper=hyper)
-    ref = jax.vmap(
-        lambda a, b, k, hy: solver.solve(robot, world, None, cfg, ops,
-                                         a, b, k, hyper=hy)
-    )(Q0b, QNb, keys, hyper)
-    np.testing.assert_array_equal(np.asarray(got.success),
-                                  np.asarray(ref.success))
-    np.testing.assert_allclose(np.asarray(got.trajectory),
-                               np.asarray(ref.trajectory),
-                               rtol=1e-5, atol=1e-6)

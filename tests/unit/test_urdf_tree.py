@@ -90,8 +90,8 @@ def test_group_spec_shape_and_gripper_rides_wrist():
     spec, static = _load_right_arm()
     assert spec.num_joints == 2
     # right arm: upper sphere on joint 0, fore + gripper spheres on joint 1
-    counts = spec.body_counts
-    assert counts == (1, 2)
+    counts = np.bincount(np.asarray(spec.body_link), minlength=2)
+    assert tuple(counts) == (1, 2)
     # gripper sphere offset = fore joint frame + 0.3 (fix) + 0.05 (collision)
     offs = np.asarray(spec.body_offset)
     assert any(np.allclose(o, [0.35, 0, 0], atol=1e-6) for o in offs)
@@ -194,4 +194,5 @@ def test_full_chain_load_attaches_whole_tree_to_torso_lift():
     assert spec.num_joints == 3  # torso_lift, r_shoulder, r_elbow
     assert spec.num_bodies == 7  # torso, head, l_upper, l_fore + right arm
     # head/left-arm spheres ride joint 0 (torso_lift)
-    assert spec.body_counts == (4, 1, 2)
+    assert tuple(np.bincount(np.asarray(spec.body_link), minlength=3)) \
+        == (4, 1, 2)

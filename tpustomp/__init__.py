@@ -1,4 +1,4 @@
-"""tpustomp — TPU-native STOMP/CHOMP trajectory optimization in JAX.
+"""tpustomp — STOMP/CHOMP trajectory optimization in JAX.
 
 A from-scratch re-architecture of the capabilities of the reference planner
 ``kalakris/stomp_motion_planner_icra2011`` (a single-threaded C++ ROS package;

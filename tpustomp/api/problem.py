@@ -10,8 +10,9 @@ primary parallel axis).
 
 from __future__ import annotations
 
-from flax import struct
 import jax.numpy as jnp
+
+from tpustomp.utils import struct
 
 
 @struct.dataclass

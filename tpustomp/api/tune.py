@@ -3,13 +3,12 @@
 Reference equivalent: none — the reference's exploration knobs
 (noise_stddev, decay, the PI² h constant baked into policy_improvement.cpp;
 SURVEY §7.3) were hand-set per robot in YAML, and evaluating a setting
-meant re-running the planner problem by problem. TPU-first, tuning IS
-planning: the traced hyperparameters (engine/solver.HyperParams) ride the
-scenario axis, so an entire (noise_scale × h × decay) grid over a problem
-set is ONE compile and ONE batched solve — 36 cells × 125 problems solve
-in ~25 s on a v5e chip, and re-evaluating a *different* grid of the same
-size re-dispatches warm with zero recompilation (bench/stomp_sweep.py is
-the measured instance of this machinery).
+meant re-running the planner problem by problem. Here tuning IS planning:
+the traced hyperparameters (engine/solver.HyperParams) ride the scenario
+axis, so an entire (noise_scale × h × decay) grid over a problem set is ONE
+compile and ONE batched solve, and re-evaluating a *different* grid of the
+same size re-dispatches warm with zero recompilation (bench/stomp_sweep.py
+drives this machinery).
 
     result = tune(robot, world, problems, cfg,
                   noise_scale=(0.7, 1.0, 1.5, 2.0),
@@ -51,10 +50,9 @@ class TuneResult:
 
         dataclasses.replace (not a rebuild) so every NoiseConfig field the
         cells inherited from cfg — stddev_per_joint (which noise_stddevs
-        prefers over the scalar), prng_impl, num_rollouts_reused — carries
-        into the baked config; a rebuild silently reverted per-joint sigma
-        ratios and the hardware-RNG opt-in, so the "tuned" config did not
-        reproduce the winning cell."""
+        prefers over the scalar), num_rollouts_reused — carries into the
+        baked config; a rebuild silently reverted per-joint sigma ratios,
+        so the "tuned" config did not reproduce the winning cell."""
         scale, h, decay = self.best
         noise = dataclasses.replace(
             cfg.noise,
@@ -79,16 +77,11 @@ def tune(robot, world, problem: ProblemSpec,
     are its learning rate/weights — static by nature).
     """
     assert cfg.mode == "stomp", "tune() sweeps STOMP exploration knobs"
-    from tpustomp.api.plan import _sanitize_robot, resolve_backend
-
-    robot = _sanitize_robot(robot)
-
     q0s = np.asarray(problem.q0, np.float32)
     qNs = np.asarray(problem.qN, np.float32)
     n = q0s.shape[0]
     cells = list(itertools.product(noise_scale, h, decay))
     G = len(cells)
-    cfg = resolve_backend(cfg, robot, world, batch_hint=G * n)
     # Resolve the goal tolerance band exactly as plan_batch will at
     # deployment (no-op for exact goals) — otherwise cells are scored on a
     # harder problem distribution than the tuned config actually solves.

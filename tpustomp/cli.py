@@ -3,15 +3,15 @@
 Reference equivalent (SURVEY §2 L7): `stomp_planner_node` launched with a
 YAML param file, serving GetMotionPlan. Here:
 
-    python -m tpustomp configs/config2_tabletop.yaml [--mode chomp]
+    python -m tpustomp configs/config2_tabletop.toml [--mode chomp]
         [--seed 0] [--viz] [--grid] [--scenarios N]
 
-reads a config file containing `planner:` (PlannerConfig fields) and
-`scene:` (robot, primitives, q0/qN; the config-2 tabletop scene is the
+reads a TOML config file containing `[planner]` (PlannerConfig fields) and
+`[scene]` (robot, primitives, q0/qN; the config-2 tabletop scene is the
 default when absent), runs one plan, and prints a JSON result line.
 `--grid` voxelizes the scene through the signed-EDT pipeline instead of the
-analytic SDF. A `batch:` section (BASELINE config 4) switches to a sharded
-scenario batch; an `mpc:` section (config 5) runs the moving-obstacle
+analytic SDF. A `[batch]` section (BASELINE config 4) switches to a sharded
+scenario batch; an `[mpc]` section (config 5) runs the moving-obstacle
 replanning loop; `--scenarios` overrides their scenario counts for quick
 runs.
 """
@@ -26,7 +26,7 @@ import time
 import numpy as np
 
 
-_DEFAULT_SCENE = {  # BASELINE config-2 tabletop (bench/common.py)
+DEFAULT_SCENE = {  # BASELINE config-2 tabletop (bench/common.py)
     "robot": "arm_7dof",
     "boxes": [{"center": [0.6, 0.0, 0.2], "half": [0.45, 0.6, 0.25]},
               {"center": [0.68, -0.05, 0.62], "half": [0.06, 0.06, 0.18]}],
@@ -37,7 +37,9 @@ _DEFAULT_SCENE = {  # BASELINE config-2 tabletop (bench/common.py)
 }
 
 
-def _build_scene(scene: dict, use_grid: bool):
+def build_scene(scene: dict, use_grid: bool):
+    """(robot, world, q0, qN) from a config's [scene] table; use_grid
+    voxelizes the primitives through the signed-EDT pipeline."""
     from tpustomp.robot import model
     from tpustomp.world import edt
     from tpustomp.world.sdf import AnalyticWorld
@@ -69,8 +71,8 @@ def _build_scene(scene: dict, use_grid: bool):
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="tpustomp",
-                                description="TPU-native STOMP/CHOMP planner")
-    p.add_argument("config", help="YAML file with planner: and scene:")
+                                description="STOMP/CHOMP trajectory planner")
+    p.add_argument("config", help="TOML file with [planner] and [scene]")
     p.add_argument("--mode", choices=["stomp", "chomp"], default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--viz", action="store_true",
@@ -89,21 +91,21 @@ def main(argv=None):
                    help="override batch:/mpc: scenario count (quick runs)")
     args = p.parse_args(argv)
 
-    import yaml
     import jax
 
-    from tpustomp.api.config import from_dict
+    from tpustomp.api.config import from_dict, read_toml
     from tpustomp.api.plan import plan, plan_timed
     from tpustomp.api.problem import ProblemSpec
+    from tpustomp.utils.cache import enable_compile_cache
 
-    with open(args.config) as f:
-        doc = yaml.safe_load(f)
+    enable_compile_cache()
+    doc = read_toml(args.config)
     cfg = from_dict(doc.get("planner", {}))
     if args.mode:
         cfg = cfg.replace(mode=args.mode)
     if args.viz:
         cfg = cfg.replace(animate_path=True)
-    robot, world, q0, qN = _build_scene(doc.get("scene", _DEFAULT_SCENE),
+    robot, world, q0, qN = build_scene(doc.get("scene", DEFAULT_SCENE),
                                         args.grid)
 
     if "batch" in doc:
@@ -128,29 +130,63 @@ def main(argv=None):
     return 0 if out["success"] else 1
 
 
-def _run_batch(doc, robot, world, q0, qN, cfg, args):
-    """BASELINE config 4: sharded scenario batch around the scene problem."""
+def batch_problems(q0, qN, n: int, jitter: float, seed: int):
+    """n problems around one start/goal, each joint jittered uniformly by
+    ±jitter rad (config 4). Returns (ProblemSpec with [n, d] leaves, keys)."""
     import jax
-    import jax.numpy as jnp
 
     from tpustomp.api.problem import ProblemSpec
-    from tpustomp.engine import distributed
 
-    spec = doc["batch"]
-    n = (args.scenarios if args.scenarios is not None
-         else int(spec.get("scenarios_per_chip", 256)))
-    jitter = float(spec.get("start_goal_jitter", 0.03))
-    rng = np.random.default_rng(args.seed)
+    rng = np.random.default_rng(seed)
     d = q0.shape[0]
     q0b = (np.tile(q0, (n, 1))
            + rng.uniform(-jitter, jitter, (n, d))).astype(np.float32)
     qNb = (np.tile(qN, (n, 1))
            + rng.uniform(-jitter, jitter, (n, d))).astype(np.float32)
-    keys = jax.random.split(jax.random.PRNGKey(args.seed), n)
+    keys = jax.random.split(jax.random.PRNGKey(seed), n)
+    return ProblemSpec(q0=q0b, qN=qNb), keys
+
+
+def mpc_scenarios(robot, cfg, q0, qN, centers, n: int, speed: float,
+                  seed: int):
+    """n MPC scenarios around one start/goal (config 5): start and goal
+    jittered by ±0.02 rad per joint, every obstacle sphere launched from
+    `centers` [S, 3] at `speed` m/s in a random direction. Returns the
+    batched MPCState (leaves [n, ...])."""
+    import jax
+    import jax.numpy as jnp
+
+    from tpustomp.engine import mpc as mpc_mod
+
+    rng = np.random.default_rng(seed)
+    d = q0.shape[0]
+    vel = rng.normal(0, 1, (n,) + centers.shape)
+    vel = (speed * vel / np.linalg.norm(vel, axis=-1, keepdims=True)
+           ).astype(np.float32)
+    q0b = (q0 + rng.uniform(-0.02, 0.02, (n, d))).astype(np.float32)
+    qNb = (qN + rng.uniform(-0.02, 0.02, (n, d))).astype(np.float32)
+    keys = jax.vmap(jax.random.PRNGKey)(seed + jnp.arange(n))
+    init = jax.jit(jax.vmap(
+        lambda rob, a, b, v, k: mpc_mod.init_mpc(rob, cfg, a, b, centers, v,
+                                                 k),
+        in_axes=(None, 0, 0, 0, 0)))
+    return init(robot, q0b, qNb, vel, keys)
+
+
+def _run_batch(doc, robot, world, q0, qN, cfg, args):
+    """BASELINE config 4: sharded scenario batch around the scene problem."""
+    import jax
+
+    from tpustomp.engine import distributed
+
+    spec = doc["batch"]
+    n = (args.scenarios if args.scenarios is not None
+         else int(spec.get("scenarios_per_chip", 256)))
+    problem, keys = batch_problems(q0, qN, n,
+                                   float(spec.get("start_goal_jitter", 0.03)),
+                                   args.seed)
     t0 = time.perf_counter()
-    sol = distributed.plan_sharded(robot, world,
-                                   ProblemSpec(q0=q0b, qN=qNb), cfg,
-                                   keys=keys)
+    sol = distributed.plan_sharded(robot, world, problem, cfg, keys=keys)
     jax.block_until_ready(sol.trajectory)
     wall = time.perf_counter() - t0
     out = distributed.summarize(sol)
@@ -169,7 +205,7 @@ def _run_mpc(doc, robot, world, q0, qN, cfg, args):
     an AnalyticWorld static part, and with --grid the voxel signed-EDT
     field rides as the CompositeWorld static grid (engine/mpc._tick_world;
     round 5 — previously the CLI dropped static geometry and rejected
-    --grid for mpc: runs)."""
+    --grid for [mpc] runs)."""
     import jax
     import jax.numpy as jnp
 
@@ -182,10 +218,8 @@ def _run_mpc(doc, robot, world, q0, qN, cfg, args):
     ticks = int(spec.get("ticks", 50))
     world_dt = float(spec.get("world_dt", 0.1))
     speed = float(spec.get("obstacle_speed", 0.2))
-    rng = np.random.default_rng(args.seed)
-    d = q0.shape[0]
     if isinstance(world, GridSDF):
-        # --grid: _build_scene voxelized the WHOLE analytic scene, spheres
+        # --grid: build_scene voxelized the WHOLE analytic scene, spheres
         # included — but this function's contract makes the scene spheres
         # the per-scenario MOVING obstacles. Re-voxelize only the static
         # geometry (boxes) and keep the spheres analytic; otherwise the
@@ -229,17 +263,7 @@ def _run_mpc(doc, robot, world, q0, qN, cfg, args):
     radius = np.full((S,), 0.12, np.float32) \
         if scene_radii.shape[0] == 0 else scene_radii
 
-    def one_state(i):
-        key = jax.random.PRNGKey(args.seed + i)
-        vel = rng.normal(0, 1, (S, 3))
-        vel = speed * vel / np.linalg.norm(vel, axis=-1, keepdims=True)
-        jq0 = q0 + rng.uniform(-0.02, 0.02, d).astype(np.float32)
-        jqN = qN + rng.uniform(-0.02, 0.02, d).astype(np.float32)
-        return mpc_mod.init_mpc(robot, cfg, jq0, jqN, centers,
-                                vel.astype(np.float32), key)
-
-    states = jax.tree.map(lambda *xs: jnp.stack(xs),
-                          *[one_state(i) for i in range(n)])
+    states = mpc_scenarios(robot, cfg, q0, qN, centers, n, speed, args.seed)
     t0 = time.perf_counter()
     out_state = mpc_mod.run_mpc_sharded(robot, cfg, states,
                                         jnp.asarray(radius), ticks, world_dt,

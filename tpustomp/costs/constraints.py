@@ -14,10 +14,10 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from tpustomp.robot.fk import fk_frames
 from tpustomp.robot.model import RobotSpec
+from tpustomp.utils import struct
 
 
 @struct.dataclass
@@ -67,32 +67,13 @@ class PositionConstraint:
 
 
 def _cost_one(robot: RobotSpec, constraint, q: jnp.ndarray) -> jnp.ndarray:
+    """One constraint's cost at configuration q, from the EE frame."""
     pos, rot, _ = fk_frames(robot, q)
-    p = [pos[-1][0], pos[-1][1], pos[-1][2]]
-    R = [rot[-1][i, j] for i in range(3) for j in range(3)]
-    return _cost_from_frame(robot, constraint, p, R)
-
-
-def frame_evaluable(constraints) -> bool:
-    """True when every constraint can be evaluated from the EE frame rows
-    the fused kernel emits (rollout_pallas ee_out) — the condition for a
-    constrained solve to stay on the time-major fused path."""
-    if constraints is None:
-        return True
-    if not isinstance(constraints, (tuple, list)):
-        constraints = (constraints,)
-    return all(isinstance(c, (OrientationConstraint, PositionConstraint))
-               for c in constraints)
-
-
-def _cost_from_frame(robot: RobotSpec, constraint, p, R):
-    """Constraint cost from an explicit EE frame. p: 3×[...], R: 9×[...]
-    (row-major rotation entries) — shared by the XLA path (single frame)
-    and the fused tail (whole [T, C] fields at once)."""
+    p, R = pos[-1], rot[-1]
     if isinstance(constraint, OrientationConstraint):
         a = constraint.axis_local
-        ach = [R[3 * i + 0] * a[0] + R[3 * i + 1] * a[1]
-               + R[3 * i + 2] * a[2] for i in range(3)]
+        ach = [R[i, 0] * a[0] + R[i, 1] * a[1] + R[i, 2] * a[2]
+               for i in range(3)]
         t = constraint.target_world
         cosang = jnp.clip(ach[0] * t[0] + ach[1] * t[1] + ach[2] * t[2],
                           -1.0, 1.0)
@@ -100,34 +81,12 @@ def _cost_from_frame(robot: RobotSpec, constraint, p, R):
         return constraint.weight * excess**2
     if isinstance(constraint, PositionConstraint):
         o = robot.ee_offset
-        rel = [p[i] + R[3 * i + 0] * o[0] + R[3 * i + 1] * o[1]
-               + R[3 * i + 2] * o[2] - constraint.target_world[i]
-               for i in range(3)]
+        rel = [p[i] + R[i, 0] * o[0] + R[i, 1] * o[1] + R[i, 2] * o[2]
+               - constraint.target_world[i] for i in range(3)]
         dist = jnp.sqrt(rel[0]**2 + rel[1]**2 + rel[2]**2)
         excess = jnp.maximum(dist - constraint.tolerance, 0.0)
         return constraint.weight * excess**2
     raise TypeError(f"unknown constraint type {type(constraint)}")
-
-
-def constraint_cost_tm(robot: RobotSpec, constraints,
-                       ee: jnp.ndarray) -> jnp.ndarray:
-    """Constraint cost from the fused kernel's EE-frame output.
-
-    ee: [12, T, C] (rows 0–2 position, 3–11 row-major rotation) →
-    [C, T] per-candidate per-waypoint cost. Pure elementwise XLA —
-    layout-compatible with the time-major batched step (no [C, T, d]
-    vmapped FK re-run; solver._tm_step_eligible)."""
-    T, C = ee.shape[1], ee.shape[2]
-    if constraints is None:
-        return jnp.zeros((C, T), ee.dtype)
-    if not isinstance(constraints, (tuple, list)):
-        constraints = (constraints,)
-    p = [ee[0], ee[1], ee[2]]
-    R = [ee[3 + k] for k in range(9)]
-    total = jnp.zeros((T, C), ee.dtype)
-    for c in constraints:
-        total = total + _cost_from_frame(robot, c, p, R)
-    return total.T
 
 
 def constraint_cost(robot: RobotSpec, constraints, full_traj: jnp.ndarray) -> jnp.ndarray:

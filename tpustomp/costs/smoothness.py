@@ -13,7 +13,7 @@ import jax.numpy as jnp
 from tpustomp.dynamics.device import DeviceOps
 
 # The A-operator rows are finite-difference stencils: their dot with θ
-# suffers catastrophic cancellation if inputs are rounded to bf16 (adjacent
+# suffers catastrophic cancellation if inputs are rounded (bf16, TF32; adjacent
 # waypoints differ in the 3rd decimal), so these matmuls stay true-fp32.
 _HI = jax.lax.Precision.HIGHEST
 
@@ -30,38 +30,6 @@ def smoothness_cost_per_timestep(ops: DeviceOps, theta: jnp.ndarray,
              + jnp.einsum("arq,qd->ard", ops.B_stack, q, precision=_HI))
     per_dt = 0.5 * jnp.sum(deriv * deriv, axis=2)          # [D, N+2]
     return jnp.einsum("a,ar->r", ops.w, per_dt)            # [N+2]
-
-
-def smoothness_cost_per_timestep_batch(ops: DeviceOps, thetas: jnp.ndarray,
-                                       q0: jnp.ndarray, qN: jnp.ndarray
-                                       ) -> jnp.ndarray:
-    """Batched control-cost rows: thetas [C, N, d] -> [C, N+2]."""
-    q = jnp.stack([q0, qN], axis=0)
-    deriv = (jnp.einsum("arn,cnd->card", ops.A_stack, thetas, precision=_HI)
-             + jnp.einsum("arq,qd->ard", ops.B_stack, q,
-                          precision=_HI)[None])        # [C, D, N+2, d]
-    per_t = 0.5 * jnp.sum(deriv * deriv, axis=3)       # [C, D, N+2]
-    return jnp.einsum("a,car->cr", ops.w, per_t)       # [C, N+2]
-
-
-def smoothness_cost_per_timestep_tm(ops: DeviceOps, cand_tm: jnp.ndarray,
-                                    q0: jnp.ndarray, qN: jnp.ndarray
-                                    ) -> jnp.ndarray:
-    """TIME-MAJOR batched control-cost rows: cand_tm [N, d, B, C],
-    q0/qN [B, d] -> [B, C, N+2].
-
-    Same contraction (over the waypoint axis, HIGHEST precision) as
-    `smoothness_cost_per_timestep_batch`; operands stay in the fused
-    kernel's lane-major layout so the big candidate tensor is consumed
-    without a scenario-major transpose (engine/solver time-major step).
-    """
-    deriv = jnp.einsum("arn,ndbc->ardbc", ops.A_stack, cand_tm,
-                       precision=_HI)
-    q = jnp.stack([q0, qN], axis=1)                       # [B, 2, d]
-    bias = jnp.einsum("arq,bqd->ardb", ops.B_stack, q, precision=_HI)
-    deriv = deriv + bias[..., None]
-    per_t = 0.5 * jnp.sum(deriv * deriv, axis=2)          # [D, N+2, B, C]
-    return jnp.einsum("a,arbc->bcr", ops.w, per_t)        # [B, C, N+2]
 
 
 def smoothness_cost(ops: DeviceOps, theta: jnp.ndarray,

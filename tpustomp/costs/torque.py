@@ -4,7 +4,7 @@ Reference equivalent (SURVEY §3.2/A.8): KDL's ``ChainIdSolver_RNE`` feeding
 ``StompOptimizer``'s torque cost term; off by default there and here
 (CostWeights.torque = 0).
 
-TPU-first formulation: the world-frame Newton-Euler recursion down and up the
+Formulation: the world-frame Newton-Euler recursion down and up the
 serial chain, written as two `lax.scan`s (unrolled — d ≤ ~10); joint
 velocities/accelerations come from the same central-difference stencils as
 the smoothness operator. All of it vmaps over waypoints/rollouts/scenarios.

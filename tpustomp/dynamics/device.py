@@ -12,10 +12,10 @@ import functools
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from tpustomp.api.config import SmoothnessConfig
 from tpustomp.dynamics.smoothness import build_operators
+from tpustomp.utils import struct
 
 
 @struct.dataclass

@@ -8,7 +8,7 @@ Reference equivalents (SURVEY.md §3.1, mount empty at build time):
   - ``stomp_utils.h`` — the FD stencil constants.
   - ``multivariate_gaussian.h`` — N(0, R^-1) sampling via Cholesky.
 
-TPU-first deviations from the reference (SURVEY §8.1):
+Deviations from the reference (SURVEY §8.1):
   - The trajectory θ holds ONLY the N free interior waypoints; the fixed
     endpoints (and the stencil padding the reference implements by duplicating
     endpoints in a padded buffer) are folded into a bias matrix B so that the

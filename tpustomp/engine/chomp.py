@@ -29,8 +29,8 @@ def _dls_solve3(J: jnp.ndarray, b: jnp.ndarray, ridge: float) -> jnp.ndarray:
     """(J Jᵀ + ridge·I)⁻¹ b for J: [..., 3, d], b: [..., 3] → [..., 3].
 
     Closed-form symmetric 3×3 solve (adjugate/det) in explicit multiply-add —
-    a batched ``linalg.solve`` would lower tiny LU factorizations onto padded
-    MXU tiles (docs/PERFORMANCE.md finding 4).
+    a batched ``linalg.solve`` would run a tiny LU factorization per body
+    and waypoint as a separate batched library call instead of fusing.
     """
     G = jnp.sum(J[..., :, None, :] * J[..., None, :, :], axis=-1)
     a = G[..., 0, 0] + ridge
@@ -90,7 +90,7 @@ def obstacle_functional_gradient(robot: RobotSpec, world, full_traj: jnp.ndarray
         ws = _dls_solve3(J, ws, pinv_ridge)           # (JJᵀ+λI)⁻¹ ws
 
     # explicit multiply-add instead of einsum: the contraction dims (B, 3)
-    # are tiny, so dot lowering would pad onto the MXU tile for nothing
+    # are tiny, so a dot buys nothing over a fused elementwise reduce
     g = jnp.sum(ws[..., None] * J, axis=(1, 2))       # [T, d]
     return g[1:-1]                                    # interior rows only
 
@@ -104,7 +104,7 @@ def exact_obstacle_gradient(robot: RobotSpec, world, theta: jnp.ndarray,
     ∫ pot·‖ẋ‖ dt; after discretization it differs from the true gradient of
     the cost the solver actually monitors by O(dt) terms (the ∂‖ẋ_b(t±1)‖/∂θ_t
     coupling through the central difference). The reference, limited to what
-    KDL exposes, could only build the functional form; on TPU the exact
+    KDL exposes, could only build the functional form; here the exact
     discrete gradient is one `jax.grad` through the same FK→SDF→potential
     pipeline the evaluator runs (tested against finite differences at 7-DOF,
     tests/unit/test_chomp_gradient7.py). Select with
@@ -209,9 +209,9 @@ def chomp_delta(ops, robot: RobotSpec, world, theta: jnp.ndarray,
                           constraints, w_constraint, w_torque)
     # precision=HIGHEST is load-bearing, not hygiene: the Newton-step
     # exactness above is the cancellation R⁻¹(Rθ + R_bias q) = θ − θ*, and
-    # TPU's default fp32 matmul (bf16 passes, ~2⁻⁸ relative error against
-    # cond(R) ~ N⁴) destroys it — measured 0.10 vs 0.73 suite success on
-    # v5e (docs/EXPERIMENTS.md round-2 note). The 100×100 matmul is far off
-    # the hot path, so exact fp32 costs nothing here.
+    # a reduced-precision float32 matmul (bf16 passes or TF32, 2⁻⁸–2⁻¹¹
+    # relative error against cond(R) ~ N⁴) destroys it — suite success fell
+    # from 0.73 to 0.10 without it (docs/EXPERIMENTS.md round-2 note). The
+    # 100×100 matmul is far off the hot path, so exact fp32 costs nothing.
     return -learning_rate * jnp.matmul(ops.Rinv, grad,
                                        precision=jax.lax.Precision.HIGHEST)

@@ -46,7 +46,7 @@ def make_mesh(devices=None) -> Mesh:
 
 def init_multihost(coordinator_address=None, num_processes=None,
                    process_id=None) -> None:
-    """Initialize the JAX multi-host runtime (DCN across hosts, ICI within).
+    """Initialize the JAX multi-host runtime (one process per host).
 
     Thin wrapper over jax.distributed.initialize so callers don't import jax
     internals; no-op if already initialized.
@@ -66,12 +66,11 @@ def _sharded_solve(cfg: PlannerConfig, mesh: Mesh, has_constraints: bool,
     replicated = NamedSharding(mesh, P())
 
     if cfg.mode == "stomp" and cfg.num_restarts <= 1:
-        # fused batched path: per-shard, all local scenarios' candidates go
-        # through one kernel launch per iteration (solver.solve_batch; the
-        # scenario axis stays sharded through the [B,C]→[B·C] flatten since
-        # C is replicated — no resharding, no cross-shard traffic). hyper
-        # leaves ([B]) shard with their scenarios, so a pod-wide
-        # hyperparameter grid is just a bigger batch.
+        # batched path: per shard, all local scenarios advance in one
+        # solver loop (solver.solve_batch; the scenario axis stays sharded,
+        # no cross-shard traffic). hyper leaves ([B]) shard with their
+        # scenarios, so a mesh-wide hyperparameter grid is just a bigger
+        # batch.
         def run(robot, world, constraints, ops, q0, qN, keys, hyper):
             return solver.solve_batch(robot, world, constraints, cfg, ops,
                                       q0, qN, keys, hyper=hyper)
@@ -98,7 +97,7 @@ def _sharded_solve(cfg: PlannerConfig, mesh: Mesh, has_constraints: bool,
 def _key_rows(keys) -> np.ndarray:
     """[B] PRNG keys as a shardable [B, W] uint32 array. New-style typed
     keys (jax.random.key) cannot pass through np.asarray — unwrap them the
-    way engine/sampling._key_words does; raw uint32 keys pass unchanged."""
+    with jax.random.key_data; raw uint32 keys pass unchanged."""
     if jnp.issubdtype(jnp.asarray(keys).dtype, jax.dtypes.prng_key):
         data = np.asarray(jax.random.key_data(keys))
         if data.shape[-1] != 2:
@@ -106,9 +105,7 @@ def _key_rows(keys) -> np.ndarray:
                 f"plan_sharded scenario keys must be threefry (2-word) "
                 f"keys; got key_data width {data.shape[-1]} "
                 f"(impl {jax.random.key_impl(keys)}). Use "
-                "jax.random.split(jax.random.PRNGKey(seed), B) — the "
-                "hardware-RNG noise stream is selected via "
-                "NoiseConfig.prng_impl, not the scenario-key impl.")
+                "jax.random.split(jax.random.PRNGKey(seed), B).")
         return data
     return np.asarray(keys)
 
@@ -135,14 +132,12 @@ def plan_sharded(robot, world, problem: ProblemSpec,
 
     hyper: optional solver.HyperParams with [batch] leaves (process-local
     shard in multi-host mode) — per-scenario traced hyperparameters shard
-    with their scenarios, so a POD-WIDE hyperparameter grid is one sharded
+    with their scenarios, so a MESH-WIDE hyperparameter grid is one sharded
     solve (api/tune.py is the single-process form). STOMP batched path
     only.
     """
     if mesh is None:
         mesh = make_mesh()
-    from tpustomp.api.plan import _sanitize_robot
-    robot = _sanitize_robot(robot)
     q0 = np.asarray(problem.q0, np.float32)
     qN = np.asarray(problem.qN, np.float32)
     if keys is None:
@@ -150,9 +145,7 @@ def plan_sharded(robot, world, problem: ProblemSpec,
                                 q0.shape[0] * jax.process_count())
         local = q0.shape[0]
         keys = keys[jax.process_index() * local:(jax.process_index() + 1) * local]
-    from tpustomp.api.plan import _apply_goal_tolerance, resolve_backend
-    cfg = resolve_backend(cfg, robot, world,
-                          batch_hint=q0.shape[0] * jax.process_count())
+    from tpustomp.api.plan import _apply_goal_tolerance
     # Resolve the goal tolerance band exactly as plan_batch does (no-op for
     # exact goals): without this, the same problems gave different results
     # the moment a user scaled from plan_batch to the mesh path. Runs on

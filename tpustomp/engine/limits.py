@@ -5,7 +5,7 @@ iteratively finds the worst violation at waypoint t*, adds a multiple of the
 R⁻¹ column through t* (so the correction is maximally smooth and endpoint-
 preserving), and repeats until clean.
 
-Two TPU formulations (SURVEY §8.3 hard part 3), selected by
+Two array formulations (SURVEY §8.3 hard part 3), selected by
 ``PlannerConfig.joint_limit_method``:
 
   - "sequential": the reference's scheme with a fixed trip count (a no-op
@@ -15,7 +15,7 @@ Two TPU formulations (SURVEY §8.3 hard part 3), selected by
   - "jacobi" (default): all violations corrected simultaneously each pass,
     θ ← θ − R⁻¹ (v ⊘ diag R⁻¹), i.e. the same per-column smooth correction
     applied in parallel (Jacobi iteration on the violated block). One
-    [N,N]×[N,d] matmul per pass for ALL joints — straight-line, MXU-friendly.
+    [N,N]×[N,d] matmul per pass for ALL joints — straight-line code.
     Overlapping columns can overshoot transiently; passes contract and the
     final clamp guarantees feasibility either way (documented deviation;
     equivalence-of-outcome covered by tests/unit/test_limits.py).

@@ -13,7 +13,7 @@ Here replanning is a first-class, batched, shardable loop:
 
 Scenarios are independent (own start/goal/obstacle state), so the whole loop
 vmaps over a scenario batch and shards over the "scenario" mesh axis exactly
-like plan_sharded (10k scenarios across a pod slice, SURVEY §3.3). Host-level
+like plan_sharded (10k scenarios across a device mesh, SURVEY §3.3). Host-level
 retry of a failed shard is trivial because MPCState is a pytree and the loop
 is stateless given it (SURVEY §6 failure-recovery row).
 """
@@ -25,7 +25,6 @@ import functools
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax import struct
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from tpustomp.api.config import PlannerConfig
@@ -34,6 +33,7 @@ from tpustomp.engine import solver
 from tpustomp.engine.distributed import SCENARIO_AXIS, make_mesh, _shard_batch
 from tpustomp.engine.trajectory import min_jerk_init
 from tpustomp.robot.model import RobotSpec
+from tpustomp.utils import struct
 from tpustomp.world.sdf import AnalyticWorld, CompositeWorld, GridSDF
 
 
@@ -105,34 +105,14 @@ GOAL_FLUSH = 0.5
 
 
 def _flush_margin(robot, world, q_next, qN, theta0, cfg: PlannerConfig):
-    """Min collision margin of the warm-start flush plan (one trajectory,
-    XLA path — ~1/(1+K) of the replan's own evaluation work)."""
+    """Min collision margin of the warm-start flush plan (one trajectory —
+    ~1/(1+K) of the replan's own evaluation work)."""
     from tpustomp.costs.obstacle import obstacle_cost
 
     full = jnp.concatenate([q_next[None], theta0, qN[None]], axis=0)
     _, margin = obstacle_cost(robot, world, full, cfg.dt,
                               cfg.collision_clearance)
     return margin
-
-
-def _flush_margin_batch(robot, worldB, q_next, qN, theta0,
-                        cfg: PlannerConfig, waxes0):
-    """Batched flush-plan margins [B] — through the fused kernel when the
-    solve itself runs there (one B-row launch ≈ 1/(1+K) of the replan's
-    kernel work; the first XLA-path cut cost +80% wall at B=1024 because
-    the unfused FK chain is what the kernel exists to avoid)."""
-    fulls = jnp.concatenate(
-        [q_next[:, None, :], theta0, qN[:, None, :]], axis=1)   # [B, T, d]
-    if (cfg.obstacle_backend == "pallas"
-            and getattr(robot, "body_counts", None) is not None):
-        from tpustomp.kernels.rollout_pallas import obstacle_cost_batch_pallas
-        _, margin = obstacle_cost_batch_pallas(
-            robot, worldB, fulls, cfg.dt, cfg.collision_clearance,
-            interpret=cfg.pallas_interpret)
-        return margin
-    return jax.vmap(
-        lambda qn, g, th, w: _flush_margin(robot, w, qn, g, th, cfg),
-        in_axes=(0, 0, 0, waxes0))(q_next, qN, theta0, worldB)
 
 
 def _apply_flush(theta_replan, theta0, q_next, qN, margin, cfg,
@@ -234,15 +214,7 @@ def run_mpc(robot: RobotSpec, cfg: PlannerConfig, state: MPCState,
             sphere_radius, num_ticks: int, world_dt: float,
             static_world=None, goal_eps: float = GOAL_EPS,
             goal_flush: float | None = GOAL_FLUSH) -> MPCState:
-    """Run `num_ticks` control steps (lax.scan; jit/vmap/shard-able).
-
-    Caveat when wrapping in your own jax.jit: the stale-joint_static guard
-    below only sees concrete leaves, so under an outer jit it cannot check
-    — if you alter joint arrays via dataclasses.replace, drop or refresh
-    robot.joint_static yourself (api/plan._sanitize_robot does it eagerly).
-    """
-    from tpustomp.api.plan import _sanitize_robot
-    robot = _sanitize_robot(robot)  # no-op on tracer leaves (outer jit)
+    """Run `num_ticks` control steps (lax.scan; jit/vmap/shard-able)."""
     ops = device_ops(cfg.num_timesteps, cfg.dt, cfg.smoothness)
 
     def tick(s, _):
@@ -256,7 +228,7 @@ def run_mpc(robot: RobotSpec, cfg: PlannerConfig, state: MPCState,
 def _tick_world_batch(centers, sphere_radius, static_world):
     """Batched `_tick_world`: centers [B, S, 3] -> a world whose analytic /
     overlay leaves carry the scenario axis (solver.solve_batch
-    world_batched=True; the kernel runs per-candidate world parameters)."""
+    world_batched=True)."""
     B = centers.shape[0]
     rad = jnp.broadcast_to(sphere_radius, (B,) + sphere_radius.shape)
     moving = AnalyticWorld(
@@ -285,10 +257,8 @@ def mpc_step_batch(robot: RobotSpec, cfg: PlannerConfig, ops,
     """Batched `mpc_step`: state leaves carry a leading [B] scenario axis.
 
     Per-scenario semantics match mpc_step; the replan goes through
-    solver.solve_batch with per-scenario worlds, so all scenarios' rollout
-    candidates share ONE fused-kernel launch per solver iteration instead
-    of paying per-scenario tile padding under vmap (docs/PERFORMANCE.md,
-    fused batched execution)."""
+    solver.solve_batch with per-scenario worlds, so all scenarios advance
+    in one solver loop."""
     from tpustomp.robot.fk import body_positions
     from tpustomp.world.sdf import sdf
 
@@ -302,11 +272,11 @@ def mpc_step_batch(robot: RobotSpec, cfg: PlannerConfig, ops,
     sol = solver.solve_batch(robot, worldB, None, cfg, ops, q_next, state.qN,
                              sub, theta0=theta0, world_batched=True)
     theta_new = sol.trajectory[:, 1:-1]
+    waxes = solver._world_axes(worldB, world_batched=True)
     if goal_flush is not None:
-        waxes0 = (CompositeWorld(grid=None, overlay=0)
-                  if isinstance(worldB, CompositeWorld) else 0)
-        fm = _flush_margin_batch(robot, worldB, q_next, state.qN, theta0,
-                                 cfg, waxes0)
+        fm = jax.vmap(
+            lambda qn, g, th, w: _flush_margin(robot, w, qn, g, th, cfg),
+            in_axes=(0, 0, 0, waxes))(q_next, state.qN, theta0, worldB)
         theta_new = _apply_flush(theta_new, theta0, q_next, state.qN, fm,
                                  cfg, goal_flush, axis=1)
 
@@ -319,8 +289,6 @@ def mpc_step_batch(robot: RobotSpec, cfg: PlannerConfig, ops,
         x = jax.vmap(lambda q: body_positions(robot, q))(qrow)
         return jnp.min(sdf(w, x) - robot.body_radius)
 
-    waxes = (CompositeWorld(grid=None, overlay=0)
-             if isinstance(worldB, CompositeWorld) else 0)
     margin = jax.vmap(seg_margin, in_axes=(0, waxes))(qs, worldB)
     return state.replace(
         q=q_next,
@@ -338,12 +306,7 @@ def run_mpc_batch(robot: RobotSpec, cfg: PlannerConfig, state: MPCState,
                   sphere_radius, num_ticks: int, world_dt: float,
                   static_world=None, goal_eps: float = GOAL_EPS,
                   goal_flush: float | None = GOAL_FLUSH) -> MPCState:
-    """Batched run_mpc: state leaves carry a leading [B] scenario axis.
-
-    Same outer-jit caveat as run_mpc: the stale-joint_static guard is a
-    no-op on tracer leaves."""
-    from tpustomp.api.plan import _sanitize_robot
-    robot = _sanitize_robot(robot)
+    """Batched run_mpc: state leaves carry a leading [B] scenario axis."""
     ops = device_ops(cfg.num_timesteps, cfg.dt, cfg.smoothness)
 
     def tick(s, _):
@@ -360,19 +323,13 @@ def _run_batch_select(robot, cfg: PlannerConfig, state, sphere_radius,
                       goal_flush: float | None = GOAL_FLUSH):
     """Batched-execution selector — the ONE code path for batched MPC runs.
 
-    STOMP scenarios replan through the flat batched solver (one fused
-    kernel launch across all scenarios' candidates per iteration);
-    per-candidate analytic worlds need the unrolled kernel, so robots
-    without a static body partition fall back to plain vmap. Both branches
-    resolve at trace time. Shared by the healthy sharded dispatch
-    (`_sharded_mpc`) AND the recovery subset re-dispatch
+    STOMP scenarios replan through the batched solver; CHOMP/HMC fall back
+    to plain vmap. The branch resolves at trace time. Shared by the healthy
+    sharded dispatch (`_sharded_mpc`) AND the recovery subset re-dispatch
     (`run_mpc_resilient._retry_fn`) so a recovered scenario replays the
-    exact same program a never-failed one ran (same batched layout, same
-    kernel) — not merely the same math through a different execution path.
+    same program a never-failed one ran.
     """
-    if cfg.mode == "stomp" and (
-            cfg.obstacle_backend != "pallas"
-            or getattr(robot, "body_counts", None) is not None):
+    if cfg.mode == "stomp":
         return run_mpc_batch(robot, cfg, state, sphere_radius, num_ticks,
                              world_dt, static_world, goal_eps, goal_flush)
     return jax.vmap(
@@ -397,16 +354,6 @@ def _sharded_mpc(cfg: PlannerConfig, mesh, num_ticks: int, world_dt: float,
                    out_shardings=sharding)
 
 
-def _probe_world(static_world):
-    """A world of the kind each tick will build, for resolve_backend."""
-    moving = AnalyticWorld(
-        sphere_center=jnp.zeros((1, 3)), sphere_radius=jnp.ones((1,)),
-        box_center=jnp.zeros((0, 3)), box_half=jnp.zeros((0, 3)))
-    if isinstance(static_world, GridSDF):
-        return CompositeWorld(grid=static_world, overlay=moving)
-    return moving
-
-
 def run_mpc_sharded(robot: RobotSpec, cfg: PlannerConfig, state: MPCState,
                     sphere_radius, num_ticks: int, world_dt: float,
                     mesh=None, static_world=None,
@@ -421,14 +368,6 @@ def run_mpc_sharded(robot: RobotSpec, cfg: PlannerConfig, state: MPCState,
     """
     if mesh is None:
         mesh = make_mesh()
-    from tpustomp.api.plan import _sanitize_robot, resolve_backend
-    # Eager stale-joint_static guard (same as plan/plan_batch/tune): the
-    # jitted tick can't check tracer leaves, so a robot altered via
-    # dataclasses.replace would otherwise run the OLD specialized
-    # kinematics on every replan with no warning.
-    robot = _sanitize_robot(robot)
-    cfg = resolve_backend(cfg, robot, _probe_world(static_world),
-                          batch_hint=jax.tree.leaves(state)[0].shape[0])
     state = jax.tree.map(lambda x: _shard_batch(np.asarray(x), mesh), state)
     fn = _sharded_mpc(cfg, mesh, num_ticks, world_dt, goal_eps, goal_flush)
     return fn(robot, state, jnp.asarray(sphere_radius, jnp.float32),
@@ -481,11 +420,7 @@ def run_mpc_resilient(robot: RobotSpec, cfg: PlannerConfig, state: MPCState,
         non-finite leaves); failed scenarios alone are re-run from the
         snapshot on a fresh dispatch while healthy results are kept.
         Re-dispatch replays the same PRNG keys, so a recovered scenario is
-        numerically identical to a never-failed one. Under the opt-in
-        batch-level noise stream (cfg.noise.prng_impl="rbg") the subset
-        re-dispatch would change the key fold, so recovery there replays
-        the FULL batch from the snapshot and keeps only the failed rows —
-        same guarantee, at full-batch recovery cost.
+        numerically identical to a never-failed one.
 
     `_fault_hook(chunk_idx, state_host) -> state_host` is the fault-injection
     seam used by tests (corrupts results as a dead shard would).
@@ -496,20 +431,6 @@ def run_mpc_resilient(robot: RobotSpec, cfg: PlannerConfig, state: MPCState,
     if chunk_ticks is None:
         chunk_ticks = max(1, min(num_ticks, 10))
     radius = jnp.asarray(sphere_radius, jnp.float32)
-    # Resolve obstacle_backend="auto" ONCE so the subset re-dispatch path
-    # (_retry_fn) runs the exact backend run_mpc_sharded resolves to — a
-    # recovered scenario must be numerically identical to a fault-free run
-    # (candidate argmins can flip across backends).
-    from tpustomp.api.plan import _sanitize_robot, resolve_backend
-    # Sanitize BEFORE resolve so the healthy dispatch (run_mpc_sharded,
-    # which sanitizes again — a no-op on the already-clean robot) and the
-    # subset-recovery dispatch (_retry_fn below, which bypasses it) run
-    # the SAME kinematics for a robot with stale joint_static.
-    robot = _sanitize_robot(robot)
-    # batch_hint: the FULL batch (never the retry subset) so healthy and
-    # recovery dispatches resolve to the same backend
-    cfg = resolve_backend(cfg, robot, _probe_world(static_world),
-                          batch_hint=jax.tree.leaves(state)[0].shape[0])
     # Device/runtime faults are retryable; deterministic programming errors
     # (shape bugs, tracer leaks) are not — re-raise those immediately.
     from jax.errors import JaxRuntimeError as _RetryableError
@@ -517,8 +438,7 @@ def run_mpc_resilient(robot: RobotSpec, cfg: PlannerConfig, state: MPCState,
     @functools.lru_cache(maxsize=8)
     def _retry_fn(ticks: int):
         # Same batched program as the healthy dispatch (_run_batch_select),
-        # just over the failed-row subset — a recovered scenario replays
-        # the identical kernel/layout a never-failed one ran.
+        # just over the failed-row subset.
         return jax.jit(lambda sub: _run_batch_select(
             robot, cfg, sub, radius, ticks, world_dt, static_world,
             goal_eps, goal_flush))
@@ -556,24 +476,8 @@ def run_mpc_resilient(robot: RobotSpec, cfg: PlannerConfig, state: MPCState,
             if not bad.any():
                 break
             idx = np.flatnonzero(bad)
-            if cfg.noise.prng_impl == "rbg":
-                # The rbg noise stream is BATCH-level (rbg_block_key folds
-                # the whole batch's keys), so a subset re-dispatch would
-                # give retried rows a different stream and silently break
-                # the recovered == never-failed guarantee. Replay the FULL
-                # batch from the snapshot through run_mpc_sharded — the
-                # LITERAL healthy program (same sharded jit, same inputs),
-                # so identity is bitwise — and keep only the failed rows.
-                # (A full-batch _retry_fn replay was measured ~1e-7 off:
-                # the unsharded jit reassociates float ops differently.)
-                redo_full = to_host(run_mpc_sharded(
-                    robot, cfg, snapshot, radius, ticks, world_dt,
-                    mesh=mesh, static_world=static_world,
-                    goal_eps=goal_eps, goal_flush=goal_flush))
-                redo = jax.tree.map(lambda x: x[idx], redo_full)
-            else:
-                sub = jax.tree.map(lambda x: jnp.asarray(x[idx]), snapshot)
-                redo = to_host(_retry_fn(ticks)(sub))
+            sub = jax.tree.map(lambda x: jnp.asarray(x[idx]), snapshot)
+            redo = to_host(_retry_fn(ticks)(sub))
             out = jax.tree.map(
                 lambda full, part: _merge_rows(full, part, idx), out, redo)
             bad = _unhealthy(out, expected)

@@ -6,8 +6,8 @@ Contract: SURVEY Appendix A.9 (per-timestep min-max normalized,
 exponentiated-cost softmax over rollouts) and A.10 (probability-weighted
 noise average smoothed through M = column-scaled R⁻¹).
 
-On TPU the softmax over K rollouts is a tiny on-chip reduction and the
-M-projection is one [N,N]×[N,d] matmul; everything vmaps over scenarios.
+The softmax over K rollouts is a small reduction and the M-projection is one
+[N,N]×[N,d] matmul; everything vmaps over scenarios.
 """
 
 from __future__ import annotations
@@ -40,52 +40,3 @@ def update(eps: jnp.ndarray, S: jnp.ndarray, M: jnp.ndarray,
     P = probabilities(S, h)                       # [K, N]
     delta = jnp.einsum("kn,knd->nd", P, eps)
     return M @ delta
-
-
-def update_tm(eps_tm: jnp.ndarray, S: jnp.ndarray, M: jnp.ndarray,
-              h: float) -> jnp.ndarray:
-    """Batched A.9/A.10 on TIME-MAJOR noise: eps_tm [N, d, B, K],
-    S [B, K, N] -> δθ [B, N, d].
-
-    NOTE: test-only reference implementation. The production time-major
-    step (solver.make_step_batch_tm) calls `update_tm_cand`, which computes
-    the same update without materializing eps; this explicit-eps form is
-    kept as the readable specification that update_tm_cand's algebra is
-    unit-tested against (tests/unit/test_pi2.py).
-
-    Same math as `vmap(update)` over scenarios; the P-weighted reduce and
-    the M projection run in the kernel's lane-major layout so the big noise
-    tensor is consumed without a scenario-major transpose (see
-    sampling.sample_noise_tm). Per-element agreement with vmap(update) is
-    unit-tested (reduction axes identical; only axis labels differ).
-    """
-    P = jax.vmap(lambda s: probabilities(s, h))(S)        # [B, K, N]
-    delta = jnp.einsum("bkn,ndbk->ndb", P, eps_tm)
-    delta = jnp.einsum("nm,mdb->ndb", M, delta)
-    return jnp.transpose(delta, (2, 0, 1))
-
-
-def update_tm_cand(cand_tm: jnp.ndarray, theta_tm: jnp.ndarray,
-                   S: jnp.ndarray, M: jnp.ndarray, h: float) -> jnp.ndarray:
-    """`update_tm` without materializing the re-centered noise tensor.
-
-    Σ_k P_k(t)·ε_k(t) = Σ_k P_k(t)·cand_k(t) − θ(t)·Σ_k P_k(t): the
-    probability-weighted noise average equals the probability-weighted
-    CANDIDATE average minus θ scaled by the (≈1 up to rounding) probability
-    sum. Algebraically identical to A.10; numerically within a few ULP
-    (tested against vmap(update)), and it saves writing + re-reading the
-    [N, d, B, K] eps tensor (~80 MB of HBM traffic per iteration at
-    config-4 B=256).
-
-    cand_tm [N, d, B, K] (noisy candidate slots only), theta_tm [N, d, B],
-    S [B, K, N] -> δθ [B, N, d]. h: scalar, or [B] for per-scenario cost
-    sensitivity (solver.HyperParams — hyperparameter grids as an array
-    axis).
-    """
-    h_arr = jnp.broadcast_to(jnp.asarray(h, jnp.float32), (S.shape[0],))
-    P = jax.vmap(probabilities)(S, h_arr)                 # [B, K, N]
-    wavg = jnp.einsum("bkn,ndbk->ndb", P, cand_tm)
-    psum = jnp.transpose(jnp.sum(P, axis=1))              # [N, B]
-    delta = wavg - theta_tm * psum[:, None, :]
-    delta = jnp.einsum("nm,mdb->ndb", M, delta)
-    return jnp.transpose(delta, (2, 0, 1))

@@ -4,7 +4,7 @@ Reference equivalents: ``PolicyImprovement::generateRollouts`` +
 ``MultivariateGaussian`` (SURVEY §3.1, A.3). The reference loops K×d calls of
 an Eigen Cholesky sampler; here one einsum applies the precomputed factor L
 (= chol(R⁻¹ / max|R⁻¹|), dynamics/smoothness.py) to a [K, N, d] standard
-normal block — an MXU matmul.
+normal block — one matmul.
 
 Rollout *reuse* (the reference keeps the best `num_rollouts_reused` rollouts,
 noise retained) is handled in engine/solver.py by carrying the kept rollouts'
@@ -18,59 +18,6 @@ import jax
 import jax.numpy as jnp
 
 
-def _key_words(keys: jax.Array) -> jnp.ndarray:
-    """Key data of a [B]-batch of keys (typed or raw uint32) as [B, W]."""
-    if jnp.issubdtype(keys.dtype, jax.dtypes.prng_key):
-        return jax.random.key_data(keys)  # batched typed keys -> [B, W]
-    return keys
-
-
-def rbg_block_key(keys: jax.Array) -> jax.Array:
-    """Fold a batch of per-scenario threefry keys into ONE rbg draw key.
-
-    Why a single key + one block draw instead of vmapping an rbg draw over
-    per-scenario keys: XLA's RngBitGenerator under ``vmap`` generates the
-    whole batch from the LEADING key only (measured on CPU and TPU:
-    perturbing keys[0] changes every row's draw; perturbing keys[i>0]
-    changes nothing). In the batched solver that is not just a parity
-    wrinkle but a correctness trap — finished scenarios' keys freeze under
-    the done mask, so a vmapped rbg draw re-issues the SAME noise block to
-    every still-active scenario from the moment scenario 0 terminates.
-    Measured as a systematic success drop at the config-2 default
-    exploration (0.929 -> 0.898 over 12 paired seed-sets, B=256, v5e)
-    before this fold replaced the vmapped draw.
-
-    The fold: wraparound-sum the key words across the batch (changes
-    whenever ANY active scenario's key advances; retry-row reseeds change
-    it), threefry-mix the 2 words up to the 4 an rbg key holds, wrap. The
-    single un-vmapped RngBitGenerator call has well-defined key dependence.
-    A uint32 sum rather than XOR because XLA's SPMD partitioner supports
-    add-reductions over a sharded scenario axis but rejects a custom
-    xor-reduce ("Unsupported reduction computation", hit under
-    plan_sharded with explicit out_shardings); mixing quality is owned by
-    the threefry finalizer either way. Consequence (documented at
-    NoiseConfig.prng_impl): the rbg stream is batch-level — a scenario's
-    noise depends on the whole batch's keys, so per-scenario
-    reproducibility across different batch compositions is deliberately
-    traded for the hardware-RNG speed.
-    """
-    words = _key_words(keys).astype(jnp.uint32)           # [B, W]
-    mixed = jnp.sum(words, axis=0, dtype=jnp.uint32)
-    # Mix down to the 2 words threefry expects regardless of the incoming
-    # key width (W=4 under jax_default_prng_impl="rbg"/"unsafe_rbg", W=1
-    # under some custom impls): pad to even length and pair-sum. Without
-    # this, wrap_key_data raises at trace time for any non-threefry
-    # scenario-key impl.
-    if mixed.shape[0] != 2:
-        pad = (-mixed.shape[0]) % 2
-        mixed = jnp.concatenate(
-            [mixed, jnp.zeros((pad,), jnp.uint32)]).reshape(-1, 2)
-        mixed = jnp.sum(mixed, axis=0, dtype=jnp.uint32)
-    tf = jax.random.wrap_key_data(mixed, impl="threefry2x32")
-    return jax.random.wrap_key_data(
-        jax.random.bits(tf, (4,), jnp.uint32), impl="rbg")
-
-
 def sample_noise(key: jax.Array, L: jnp.ndarray, sigma: jnp.ndarray,
                  num_rollouts: int) -> jnp.ndarray:
     """Draw ε [K, N, d] with per-joint scale sigma [d] (A.3).
@@ -78,53 +25,10 @@ def sample_noise(key: jax.Array, L: jnp.ndarray, sigma: jnp.ndarray,
     ε_kj = σ_j · L z_kj with z standard normal; endpoints are exactly zero by
     construction because L acts only on free waypoints.
 
-    z is drawn in (d, K, N) axis order — the SAME flat PRNG stream order as
-    `sample_noise_tm`'s per-scenario draw, so the batched time-major solver
-    path produces the same noise as this per-scenario path up to dot
-    reassociation (~1e-7; the equality tests between solve_batch /
-    vmap(solve) / backends depend on the shared draw). Distribution is
-    unchanged (iid normals; axis order is labeling).
+    z is drawn in (d, K, N) axis order (iid normals; the order only fixes
+    which stream element lands where, so it is part of the seeded result).
     """
     N = L.shape[0]
     d = sigma.shape[0]
     z = jax.random.normal(key, (d, num_rollouts, N), dtype=L.dtype)
     return jnp.einsum("nm,dkm->knd", L, z) * sigma[None, None, :]
-
-
-def sample_noise_tm(keys: jax.Array, L: jnp.ndarray, sigma: jnp.ndarray,
-                    num_rollouts: int, impl: str = "threefry") -> jnp.ndarray:
-    """Batched TIME-MAJOR draw: keys [B], sigma [B, d] (per-scenario decay
-    folded in by the caller) -> ε_tm [N, d, B, K].
-
-    Produces exactly `vmap(sample_noise)(keys)` transposed to [n, d, b, k] —
-    same per-key z values (vmap of the same draw), same contraction over the
-    waypoint axis — but materializes directly in the fused kernel's
-    lane-major layout: the einsum's dot_general emits [n][d, b, k] with no
-    transpose at all (rhs non-contracting order is (d, b, k) because
-    out_axes=1 interleaves the scenario axis), where the scenario-major
-    layout costs a pathological [B·C, T, d] -> [d, T, B·C] permute
-    (~0.57 ms at B=256 on v5e, 14% of HBM bandwidth).
-
-    impl="rbg" (NoiseConfig.prng_impl): ONE hardware-RNG block draw keyed by
-    the add-fold of all scenario keys (rbg_block_key above — see its
-    docstring for why vmapping an rbg draw over keys would be wrong). Same
-    distribution and the same L contraction / per-scenario sigma scaling;
-    different bit stream (batch-level, not per-scenario). Measured on v5e
-    at B=256: the [d, B·K, N] draw drops 0.270 -> 0.123 ms, the full
-    time-major step 1.91 -> 1.73 ms (docs/PERFORMANCE.md round 5).
-    """
-    d = sigma.shape[1]
-    N = L.shape[0]
-    B = sigma.shape[0]
-    if impl == "rbg":
-        z = jax.random.normal(rbg_block_key(keys), (d, B, num_rollouts, N),
-                              dtype=L.dtype)
-    elif impl == "threefry":
-        z = jax.vmap(lambda k: jax.random.normal(k, (d, num_rollouts, N),
-                                                 dtype=L.dtype),
-                     out_axes=1)(keys)                  # [d, B, K, N]
-    else:
-        raise ValueError(
-            f"unknown prng_impl {impl!r} (expected threefry|rbg)")
-    eps = jnp.einsum("nm,dbkm->ndbk", L, z)
-    return eps * jnp.transpose(sigma)[None, :, :, None]

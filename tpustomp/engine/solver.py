@@ -2,7 +2,7 @@
 
 Reference equivalents (SURVEY §2, §4.3): ``StompOptimizer::optimize`` +
 ``PolicyImprovementLoop::runSingleIteration`` + the `Task::execute` callback
-inversion between L4 and L5. TPU-first, the inversion disappears: a single
+inversion between L4 and L5. Here the inversion disappears: a single
 pure function `_stomp_step`/`_chomp_step` contains
 sample → joint-limit project → FK+SDF cost → PI² softmax → M-smoothed update,
 batched over rollouts with vmap; the outer iteration is a `lax.while_loop`
@@ -12,8 +12,8 @@ scenarios freeze via the while-loop's done predicate (SURVEY §8.3 part 4).
 
 Deviations from the reference, documented:
   - Reused rollouts are re-evaluated each iteration instead of carrying cached
-    costs. On TPU the K rollouts are one batched evaluation, so re-evaluating
-    the handful of reused ones is free and removes stale-cost bookkeeping;
+    costs. The K rollouts are one batched evaluation, so re-evaluating the
+    handful of reused ones costs little and removes stale-cost bookkeeping;
     numerics are identical because the cost is deterministic in θ_k.
   - The planning_time_limit is enforced by the host replan wrapper between
     device calls (api/plan.py), not inside the compiled loop; the in-loop
@@ -28,7 +28,6 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from tpustomp.api.config import PlannerConfig
 from tpustomp.api.problem import IterationMetrics, Solution
@@ -43,6 +42,7 @@ from tpustomp.engine.limits import project_limits
 from tpustomp.engine.sampling import sample_noise
 from tpustomp.engine.trajectory import full_trajectory, min_jerk_init, wrap_goal
 from tpustomp.robot.model import RobotSpec
+from tpustomp.utils import struct
 
 
 @struct.dataclass
@@ -116,50 +116,9 @@ def _evaluate_batch(robot, world, constraints, cfg: PlannerConfig,
 
     Returns (S [C, N+2], ctrl_t [C, N+2], margins [C], totals [C],
     parts ([C] obstacle sums, [C] ctrl sums, [C] constraint sums)).
-    Backend "pallas" runs the fused rollout kernel (one launch for ALL
-    candidates); "xla" vmaps the single-trajectory path.
     """
-    if cfg.obstacle_backend != "pallas":
-        return jax.vmap(lambda th: _evaluate(robot, world, constraints, cfg,
-                                             ops, q0, qN, th))(thetas)
-
-    from tpustomp.costs.smoothness import smoothness_cost_per_timestep_batch
-
-    fulls = jax.vmap(lambda th: full_trajectory(th, q0, qN))(thetas)
-    ctrl_t = smoothness_cost_per_timestep_batch(ops, thetas, q0, qN)
-    return _evaluate_fulls_pallas(robot, world, constraints, cfg, fulls,
-                                  ctrl_t)
-
-
-def _evaluate_fulls_pallas(robot, world, constraints, cfg: PlannerConfig,
-                           fulls, ctrl_t, row_active=None):
-    """Fused-kernel evaluation of precomputed full trajectories [C, T, d].
-
-    Split out of `_evaluate_batch` so the batched solver (`solve_batch`) can
-    flatten scenarios × candidates into ONE kernel launch (the candidate
-    axis is embarrassingly parallel; per-candidate numerics are layout-
-    independent). row_active: optional [C] bool hint — False rows may come
-    back as zeros (finished scenarios, discarded by the freeze mask).
-    """
-    from tpustomp.kernels.rollout_pallas import obstacle_cost_batch_pallas
-
-    q_obs, margins = obstacle_cost_batch_pallas(
-        robot, world, fulls, cfg.dt, cfg.collision_clearance,
-        interpret=cfg.pallas_interpret, row_active=row_active)
-    S = cfg.weights.obstacle * q_obs
-    q_con_sum = jnp.zeros(fulls.shape[0], fulls.dtype)
-    if constraints is not None:
-        q_con = jax.vmap(lambda f: constraint_cost(robot, constraints, f)
-                         )(fulls)
-        S = S + cfg.weights.constraint * q_con
-        q_con_sum = jnp.sum(q_con, axis=1)
-    if cfg.weights.torque > 0.0:
-        q_tau = jax.vmap(lambda f: torque_cost(robot, f, cfg.dt))(fulls)
-        S = S + cfg.weights.torque * q_tau
-    ctrl = jnp.sum(ctrl_t, axis=1)
-    totals = jnp.sum(S, axis=1) + cfg.weights.smoothness * ctrl
-    return S, ctrl_t, margins, totals, (jnp.sum(q_obs, axis=1), ctrl,
-                                        q_con_sum)
+    return jax.vmap(lambda th: _evaluate(robot, world, constraints, cfg,
+                                         ops, q0, qN, th))(thetas)
 
 
 def _record(state: SolverState, it, total, parts, cf) -> dict:
@@ -177,10 +136,9 @@ def _record(state: SolverState, it, total, parts, cf) -> dict:
 def _make_stomp_phases(robot: RobotSpec, cfg: PlannerConfig, ops: DeviceOps,
                        project, sigma0):
     """The two per-scenario halves of one STOMP iteration, split around the
-    candidate evaluation so the batched path (`solve_batch`) can flatten
-    scenarios × candidates into one fused-kernel launch between them.
-    `make_step` composes them back into the single-scenario step; numerics
-    are shared by construction."""
+    candidate evaluation so the batched path (`solve_batch`) can evaluate all
+    scenarios' candidates between them. `make_step` composes them back into
+    the single-scenario step; numerics are shared by construction."""
 
     def propose(state: SolverState, hyper: HyperParams | None = None):
         """Sample noise, assemble the candidate set, apply per-rollout joint
@@ -369,8 +327,9 @@ def make_step(robot: RobotSpec, world, constraints, cfg: PlannerConfig,
                                   w_constraint=cfg.weights.constraint,
                                   w_torque=cfg.weights.torque)
 
-        _hi = jax.lax.Precision.HIGHEST  # see chomp_delta: bf16-pass matmuls
-        # break the R/R⁻¹ cancellations this integrator depends on
+        # see chomp_delta: reduced-precision matmuls break the R/R⁻¹
+        # cancellations this integrator depends on
+        _hi = jax.lax.Precision.HIGHEST
 
         def kinetic(v):
             Rv = jnp.matmul(ops.R, v, precision=_hi)
@@ -504,9 +463,8 @@ def solve(robot: RobotSpec, world, constraints, cfg: PlannerConfig,
     return finalize(robot, world, constraints, cfg, ops, q0, qN, state)
 
 
-def _batched_world_parts(world, world_batched: bool):
-    """(vmap in_axes prefix, per-candidate expander) for a possibly
-    per-scenario world.
+def _world_axes(world, world_batched: bool):
+    """vmap in_axes prefix for a possibly per-scenario world.
 
     world_batched=True means the analytic/overlay leaves carry a leading
     scenario axis [B, ...] (MPC moving obstacles — each scenario sees its
@@ -515,229 +473,10 @@ def _batched_world_parts(world, world_batched: bool):
     from tpustomp.world.sdf import CompositeWorld
 
     if not world_batched:
-        return None, lambda w, C: w
+        return None
     if isinstance(world, CompositeWorld):
-        axes = CompositeWorld(grid=None, overlay=0)
-        expand = lambda w, C: CompositeWorld(
-            grid=w.grid,
-            overlay=jax.tree.map(lambda x: jnp.repeat(x, C, axis=0),
-                                 w.overlay))
-        return axes, expand
-    return 0, lambda w, C: jax.tree.map(lambda x: jnp.repeat(x, C, axis=0), w)
-
-
-def _tm_step_eligible(robot: RobotSpec, world, constraints,
-                      cfg: PlannerConfig) -> bool:
-    """Can the batched step run in the time-major layout?
-
-    Requirements are those of the fully-fused analytic time-major kernel
-    plus XLA-side stages that would otherwise need a scenario-major
-    transpose of the candidate tensor: analytic world, no torque vmaps
-    over [C, T, d] fulls, clip-mode rollout limits, unrolled kernel
-    available, and the kernel layout not forced to candidate-major.
-
-    Constraints stay tm-eligible when every one is frame-evaluable
-    (Orientation/Position): the kernel emits the EE frame (ee_out) and the
-    constraint tail is elementwise XLA on [T, B·C]
-    (costs/constraints.constraint_cost_tm) — round-5 closure of the
-    r4 "constraint solves drop to the slowest path" gap.
-    """
-    import os
-
-    from tpustomp.costs.constraints import frame_evaluable
-    from tpustomp.world.sdf import AnalyticWorld
-
-    return (cfg.obstacle_backend == "pallas"
-            and isinstance(world, AnalyticWorld)
-            and frame_evaluable(constraints)
-            and cfg.weights.torque == 0.0
-            and cfg.rollout_limit_projection != "smooth"
-            and getattr(robot, "body_counts", None) is not None
-            and os.environ.get("TPUSTOMP_PALLAS_LAYOUT", "tm") == "tm")
-
-
-def make_step_batch_tm(robot: RobotSpec, world, constraints,
-                       cfg: PlannerConfig, ops: DeviceOps, Q0, QN,
-                       world_batched: bool = False,
-                       hyper: HyperParams | None = None):
-    """Time-major variant of `make_step_batch`: the candidate tensor is
-    built, evaluated, and consumed in the fused kernel's lane-major layout
-    [N, d, B, C] end to end.
-
-    Why: the scenario-major step materializes cand as [B, C, N, d] and the
-    kernel call transposes it to [d, T, B·C] — a pathological permute
-    (minor axis d=7) measured at 0.57 ms/iteration at B=256 on v5e, ~27% of
-    the whole step. Building time-major is free: the sampler's dot_general
-    emits [n][d, b, k] directly (sampling.sample_noise_tm), candidate
-    assembly concatenates along the minor axis, the control-cost rows and
-    the PI² reduce consume the same layout (costs.smoothness tm /
-    pi2.update_tm), and only O(B·N·d) scenario-major tensors (θ, δθ, reuse)
-    are ever transposed. Measured: propose+kernel reaches the kernel-only
-    floor (0.889 vs 0.900 ms/iter).
-
-    Per-scenario numerics match `make_step_batch` / vmap(solve) UNDER THE
-    DEFAULT THREEFRY STREAM: the z draw order is shared (sample_noise's
-    (d, K, N) convention), every contraction reduces over the same axis,
-    and only axis labels differ (dot tilings may differ at ULP level across
-    backends; equality is asserted exactly on the XLA CPU path and at 1e-6
-    through pallas interpret — see tests/unit/test_rollout_kernel.py::
-    test_solve_batch_with_done_scenarios_matches_vmap_solve and
-    tests/unit/test_tm_layout.py). With cfg.noise.prng_impl="rbg" the draw
-    is batch-level (one block keyed by the fold of all scenario keys), so
-    cross-path per-scenario parity is deliberately NOT available — do not
-    add rbg cases to the gather-parity tests above.
-    """
-    from tpustomp.costs.smoothness import smoothness_cost_per_timestep_tm
-    from tpustomp.engine.sampling import sample_noise_tm
-
-    assert cfg.mode == "stomp"
-    B = Q0.shape[0]
-    d = robot.num_joints
-    N = cfg.num_timesteps
-    K = cfg.num_rollouts
-    Kr = cfg.noise.num_rollouts_reused
-    C = 1 + K + Kr
-    sigma0 = jnp.asarray(cfg.noise_stddevs(d), jnp.float32)
-    project = lambda th: project_limits(th, robot.joint_lower,
-                                        robot.joint_upper,
-                                        robot.joint_limited, ops.Rinv,
-                                        cfg.joint_limit_iterations,
-                                        cfg.joint_limit_method)
-    _, expand_world = _batched_world_parts(world, world_batched)
-    q0_tm = jnp.transpose(Q0)                              # [d, B]
-    qN_tm = jnp.transpose(QN)
-
-    def finish_one(state, key, theta_new, reuse_new, total0, margin0,
-                   parts0) -> SolverState:
-        """Per-scenario A.12 bookkeeping (vmapped; mirrors apply_update)."""
-        it = state.iteration
-        cf = margin0 > cfg.collision_threshold
-        cf_count = jnp.where(cf, state.cf_count + 1, jnp.int32(0))
-        improved = cf & (total0 < state.best_cost)
-        done = ((it + 1 >= cfg.max_iterations)
-                | (cf_count >= cfg.max_iterations_after_collision_free))
-        return state.replace(
-            theta=theta_new,
-            key=key,
-            iteration=it + 1,
-            best_theta=jnp.where(improved, state.theta, state.best_theta),
-            best_cost=jnp.where(improved, total0, state.best_cost),
-            found_cf=state.found_cf | cf,
-            cf_count=cf_count,
-            done=done,
-            reuse_theta=reuse_new,
-            **_record(state, it, total0, parts0, cf),
-        )
-
-    finish_v = jax.vmap(finish_one)
-
-    def iteration(stateB: SolverState) -> SolverState:
-        # --- propose, time-major --------------------------------------
-        it = stateB.iteration
-        decay_base = (jnp.float32(cfg.noise.decay) if hyper is None
-                      else hyper.decay)                       # scalar | [B]
-        decay = jnp.power(decay_base, it.astype(jnp.float32))  # [B]
-        sigma = sigma0[None, :] * decay[:, None]              # [B, d]
-        if hyper is not None:
-            sigma = sigma * hyper.noise_scale[:, None]
-        splits = jax.vmap(jax.random.split)(stateB.key)
-        keys_new, k_noise = splits[:, 0], splits[:, 1]
-
-        theta_tm = jnp.transpose(stateB.theta, (1, 2, 0))     # [N, d, B]
-        # prng_impl="rbg": hardware-RNG block draw (engine/sampling.py —
-        # keys stay threefry; only the z bits come from the folded rbg key)
-        eps_tm = sample_noise_tm(k_noise, ops.L_sample, sigma, K,
-                                 impl=cfg.noise.prng_impl)
-        reuse_tm = jnp.transpose(stateB.reuse_theta, (2, 3, 0, 1))
-        cand_tm = jnp.concatenate(
-            [theta_tm[..., None], theta_tm[..., None] + eps_tm, reuse_tm],
-            axis=3)                                           # [N, d, B, C]
-        cand_tm = jnp.where(
-            robot.joint_limited[None, :, None, None],
-            jnp.clip(cand_tm, robot.joint_lower[None, :, None, None],
-                     robot.joint_upper[None, :, None, None]),
-            cand_tm)
-
-        # --- evaluate: ONE fused-kernel launch ------------------------
-        full_tm = jnp.concatenate([
-            jnp.broadcast_to(q0_tm[None, :, :, None], (1, d, B, C)),
-            cand_tm,
-            jnp.broadcast_to(qN_tm[None, :, :, None], (1, d, B, C)),
-        ], axis=0).reshape(N + 2, d, B * C)
-        tm = jnp.transpose(full_tm, (1, 0, 2))                # [d, T, B·C]
-        from tpustomp.kernels.rollout_pallas import obstacle_cost_batch_pallas
-        # handed over as logical [B·C, T, d]; the kernel's internal
-        # transpose cancels against this one (XLA folds the pair), so the
-        # custom call receives the time-major array we just built
-        outs = obstacle_cost_batch_pallas(
-            robot, expand_world(world, C), jnp.transpose(tm, (2, 1, 0)),
-            cfg.dt, cfg.collision_clearance,
-            interpret=cfg.pallas_interpret,
-            row_active=jnp.repeat(~stateB.done, C),
-            want_ee=constraints is not None)
-        if constraints is not None:
-            # fused-path constraints: the kernel's EE-frame rows feed an
-            # elementwise cone/position tail (costs/constraints.py) — no
-            # second FK sweep (_tm_step_eligible)
-            from tpustomp.costs.constraints import constraint_cost_tm
-            q_obs, margins, ee = outs
-            q_con = constraint_cost_tm(robot, constraints, ee
-                                       ).reshape(B, C, N + 2)
-        else:
-            q_obs, margins = outs
-            q_con = None
-        q_obs = q_obs.reshape(B, C, N + 2)                    # lane = b·C + c
-        margins = margins.reshape(B, C)
-        ctrl_all = smoothness_cost_per_timestep_tm(ops, cand_tm, Q0, QN)
-        S_all = cfg.weights.obstacle * q_obs
-        if q_con is not None:
-            S_all = S_all + cfg.weights.constraint * q_con
-        ctrl_sums = jnp.sum(ctrl_all, axis=2)
-        totals = jnp.sum(S_all, axis=2) + cfg.weights.smoothness * ctrl_sums
-
-        # --- update (A.9/A.10), time-major ----------------------------
-        # re-centered noise (A.3) enters as ΣP·cand − θ·ΣP (update_tm_cand)
-        # so the [N,d,B,K] eps tensor is never materialized
-        S_used = S_all[:, 1:, :]
-        if cfg.pi2_include_control_cost:
-            S_used = S_used + cfg.weights.smoothness * ctrl_all[:, 1:, :]
-        if cfg.pi2_cost_mode == "cumulative":
-            S_used = jnp.cumsum(S_used[:, :, ::-1], axis=2)[:, :, ::-1]
-        delta = pi2.update_tm_cand(cand_tm[..., 1:], theta_tm,
-                                   S_used[:, :, 1:-1], ops.M,
-                                   cfg.pi2_h if hyper is None
-                                   else hyper.h)              # [B, N, d]
-        theta_new = jax.vmap(project)(stateB.theta + delta)
-
-        # rollout reuse: lowest-total-cost noisy candidates (A.3).
-        # Selection is a one-hot MXU contraction emitting the scenario-major
-        # layout directly, replacing take_along_axis + a minor-axis-7
-        # permute. Wall-clock NEUTRAL vs the gather (the ~0.25 ms stage cost
-        # is intrinsic re-reading of the 40 MB candidate tensor —
-        # bench/step_bisect.py / docs/PERFORMANCE.md round 4); kept for the
-        # removed pathological permute. precision=HIGHEST makes it EXACT
-        # (each output is 1.0·v with zero accumulands, recovered losslessly
-        # by the 3-pass fp32 split), so gather-parity with vmap(solve) is
-        # preserved.
-        _, keep = jax.lax.top_k(-totals[:, 1:],
-                                cfg.noise.num_rollouts_reused)
-        keep_oh = jax.nn.one_hot(keep + 1, C, dtype=cand_tm.dtype)
-        reuse_new = jnp.einsum("ndbc,brc->brnd", cand_tm, keep_oh,
-                               precision=jax.lax.Precision.HIGHEST)
-
-        parts0 = (jnp.sum(q_obs[:, 0, :], axis=1), ctrl_sums[:, 0],
-                  jnp.zeros((B,), jnp.float32) if q_con is None
-                  else jnp.sum(q_con[:, 0, :], axis=1))
-        return finish_v(stateB, keys_new, theta_new, reuse_new,
-                        totals[:, 0], margins[:, 0], parts0)
-
-    def step(stateB: SolverState) -> SolverState:
-        new = iteration(stateB)
-        mask = lambda o, n: jnp.where(
-            stateB.done.reshape((B,) + (1,) * (n.ndim - 1)), o, n)
-        return jax.tree.map(mask, stateB, new)
-
-    return step
+        return CompositeWorld(grid=None, overlay=0)
+    return 0
 
 
 def make_step_batch(robot: RobotSpec, world, constraints, cfg: PlannerConfig,
@@ -746,25 +485,15 @@ def make_step_batch(robot: RobotSpec, world, constraints, cfg: PlannerConfig,
     """One STOMP iteration over a leading scenario axis (Q0/QN: [B, d]).
 
     Per-scenario numerics are identical to `make_step`'s stomp_step — both
-    compose the same `_make_stomp_phases` helpers — the difference is purely
-    execution layout: all B scenarios' candidate sets are flattened into ONE
-    fused-kernel launch. Under plain `jax.vmap(solve)` the pallas_call's
-    batching rule adds a grid dimension, so every scenario's 1+K+reuse
-    candidates (56 at config defaults) are padded to the kernel tile
-    separately — 56→128 lanes in the time-major layout, 2.3× wasted work
-    (measured: +23% end-to-end at B=256). Flattening packs 56·B candidates
-    into full tiles with one pad at the very end.
+    compose the same `_make_stomp_phases` helpers — so a scenario's result
+    matches `jax.vmap(solve)` (tested). Unlike vmap(solve), whose
+    while-loop runs each scenario's own trip count under a batched
+    predicate, this step is the body of ONE loop over the whole batch;
+    finished scenarios are frozen by a select (see `step`).
 
     world_batched: the world's analytic/overlay leaves carry a leading
-    scenario axis (per-scenario moving obstacles, MPC); the flat kernel
-    launch then runs with per-candidate world parameters
-    (kernels/rollout_pallas.py per_cand_world).
+    scenario axis (per-scenario moving obstacles, MPC).
     """
-    if cfg.mode == "stomp" and _tm_step_eligible(robot, world, constraints,
-                                                 cfg):
-        return make_step_batch_tm(robot, world, constraints, cfg, ops,
-                                  Q0, QN, world_batched=world_batched,
-                                  hyper=hyper)
     sigma0 = jnp.asarray(cfg.noise_stddevs(robot.num_joints), jnp.float32)
     project = lambda th: project_limits(th, robot.joint_lower,
                                         robot.joint_upper,
@@ -777,49 +506,27 @@ def make_step_batch(robot: RobotSpec, world, constraints, cfg: PlannerConfig,
     propose_v = jax.vmap(propose, in_axes=(0, hy_ax))
     apply_v = jax.vmap(apply_update,
                        in_axes=(0, 0, 0, 0, 0, 0, 0, 0, hy_ax))
-
-    from tpustomp.costs.smoothness import smoothness_cost_per_timestep_batch
-
-    world_axes, expand_world = _batched_world_parts(world, world_batched)
-
-    def evaluate_all(cands, active=None):
-        """cands [B, C, N, d] -> the _evaluate_batch tuple with a leading
-        scenario axis on every element. active: optional [B] bool (not-done
-        mask) — finished scenarios' rows may come back as zeros; the step's
-        freeze mask discards them (sync-free convergence-tail skip)."""
-        if cfg.obstacle_backend != "pallas":
-            # XLA path: flattening buys nothing (no tile padding); keep the
-            # per-scenario evaluation, bit-identical to vmap(solve).
-            return jax.vmap(
-                lambda th, a, b, w: _evaluate_batch(
-                    robot, w, constraints, cfg, ops, a, b, th),
-                in_axes=(0, 0, 0, world_axes),
-            )(cands, Q0, QN, world)
-        B, C = cands.shape[0], cands.shape[1]
-        fulls = jax.vmap(lambda th, a, b: jax.vmap(
-            lambda t: full_trajectory(t, a, b))(th))(cands, Q0, QN)
-        ctrl_t = jax.vmap(lambda th, a, b: smoothness_cost_per_timestep_batch(
-            ops, th, a, b))(cands, Q0, QN)
-        T = fulls.shape[2]
-        row_active = None if active is None else jnp.repeat(active, C)
-        S, ctrl, margins, totals, parts = _evaluate_fulls_pallas(
-            robot, expand_world(world, C), constraints, cfg,
-            fulls.reshape(B * C, T, -1), ctrl_t.reshape(B * C, T),
-            row_active=row_active)
-        rs = lambda x: x.reshape((B, C) + x.shape[1:])
-        return (rs(S), rs(ctrl), rs(margins), rs(totals),
-                tuple(rs(p) for p in parts))
+    world_axes = _world_axes(world, world_batched)
+    evaluate_all = jax.vmap(
+        lambda th, a, b, w: _evaluate_batch(robot, w, constraints, cfg, ops,
+                                            a, b, th),
+        in_axes=(0, 0, 0, world_axes))
 
     def step(stateB: SolverState) -> SolverState:
-        keys, cands = propose_v(stateB, hyper)
-        outs = evaluate_all(cands, active=~stateB.done)
-        new = apply_v(stateB, keys, cands, *outs, hyper)
-        # freeze finished scenarios — the same per-element select that
-        # jax.vmap(lax.while_loop) applies, so results match vmap(solve)
-        B = stateB.done.shape[0]
-        mask = lambda o, n: jnp.where(
-            stateB.done.reshape((B,) + (1,) * (n.ndim - 1)), o, n)
-        return jax.tree.map(mask, stateB, new)
+        # named scopes label the step's stages in device traces
+        # (bench/trace_config4.py)
+        with jax.named_scope("propose"):
+            keys, cands = propose_v(stateB, hyper)
+        with jax.named_scope("evaluate"):
+            outs = evaluate_all(cands, Q0, QN, world)
+        with jax.named_scope("update"):
+            new = apply_v(stateB, keys, cands, *outs, hyper)
+            # freeze finished scenarios — the same per-element select that
+            # jax.vmap(lax.while_loop) applies, so results match vmap(solve)
+            B = stateB.done.shape[0]
+            mask = lambda o, n: jnp.where(
+                stateB.done.reshape((B,) + (1,) * (n.ndim - 1)), o, n)
+            return jax.tree.map(mask, stateB, new)
 
     return step
 
@@ -831,11 +538,9 @@ def solve_batch(robot: RobotSpec, world, constraints, cfg: PlannerConfig,
                 hyper: HyperParams | None = None) -> Solution:
     """Batched planning (BASELINE config 4): B scenarios to termination.
 
-    Per-scenario results match `jax.vmap(solve)` (tested); execution flattens
-    all scenarios' candidates into one fused-kernel launch per iteration
-    (see make_step_batch). STOMP mode only — CHOMP/HMC scenarios evaluate
-    one candidate each, where plain vmap already packs tiles via the
-    batching-rule grid axis; callers fall back to vmap(solve) there.
+    Per-scenario results match `jax.vmap(solve)` (tested); all scenarios
+    advance in one while-loop (see make_step_batch). STOMP mode only —
+    CHOMP/HMC callers use vmap(solve).
 
     world_batched=True: world analytic/overlay leaves carry a leading [B]
     scenario axis (per-scenario worlds — MPC moving obstacles).
@@ -863,7 +568,7 @@ def _init_batch(robot: RobotSpec, cfg: PlannerConfig, Q0, QN, keys, theta0):
 
 def _finalize_batch(robot: RobotSpec, world, constraints, cfg: PlannerConfig,
                     ops: DeviceOps, Q0, QN, stateB, world_batched: bool):
-    world_axes, _ = _batched_world_parts(world, world_batched)
+    world_axes = _world_axes(world, world_batched)
     return jax.vmap(
         lambda a, b, s, w: finalize(robot, w, constraints, cfg, ops, a, b, s),
         in_axes=(0, 0, 0, world_axes),
@@ -945,22 +650,16 @@ def solve_batch_compacted(robot: RobotSpec, world, constraints,
 
     The pure batched path runs its `while_loop` until ALL scenarios finish,
     so frozen (done) scenarios keep evaluating their full candidate set every
-    iteration — at config-4 shapes (B=1024, mean 30 / max 50 iterations)
-    that is ~30–40% wasted evaluation in the convergence tail. This variant
+    iteration in the convergence tail. This variant
     runs the same per-scenario step in chunks of `chunk` iterations; between
     chunks the host reads the done mask, scatters finished rows into a
     full-batch result buffer, and re-dispatches only the still-active
     scenarios, padded up to the next power-of-two bucket (each bucket size
-    compiles once; `min_bucket` floors the bucket so the fused kernel stays
+    compiles once; `min_bucket` floors the bucket so the device stays
     well-fed). Pad rows are duplicates of an active row, but their results
     are NEVER merged: the done-mask merge reads only the non-pad prefix and
     the row scatter points pads out of bounds (mode="drop"), so nothing
-    depends on a pad row evolving identically to its original. (Under
-    ``noise.prng_impl="rbg"`` pads genuinely diverge — the stream is
-    batch-position-keyed — and compaction changes every active scenario's
-    noise vs the uncompacted run because the batch composition changes;
-    results remain valid independent solves, but the compacted == plain
-    parity assertion holds for the default threefry stream only.)
+    depends on a pad row evolving identically to its original.
 
     Per-scenario results match `solve_batch` to roundoff: gather/scatter
     permute whole rows, but XLA may tile batched ops differently at

@@ -4,18 +4,18 @@ Reference equivalents (SURVEY §3.1): orocos-KDL frame composition plus the
 package's custom ``TreeFkSolverJointPosAxis`` solvers, which return every
 segment frame *and* joint origins/axes in one pass precisely so point
 Jacobians can be formed without per-point chain solves. This module is the
-same idea, TPU-first: one unrolled pass down the chain yields all joint
+same idea: one unrolled pass down the chain yields all joint
 frames, origins, and world axes; bodies and Jacobians are vectorized gathers
 on top.
 
 Batching: every function takes a single configuration q[d]; callers `vmap`
 over waypoints, rollouts, and scenarios (SURVEY §4.3 device mapping).
 
-TPU performance note: ALL 3x3/3-vector algebra here is written as explicit
+Performance note: ALL 3x3/3-vector algebra here is written as explicit
 elementwise multiply-add (`_mat_mul`/`_mat_vec`), never `jnp.dot`/`einsum`
-with a contraction — a batched 3x3 dot lowers to MXU matmuls padded to the
-128x128 systolic tile (~0.05% utilization), which measured ~65x slower than
-the same math on the VPU. Elementwise form fuses into the surrounding ops.
+with a contraction — a batched 3x3 dot becomes a separate batched-matmul
+call per product, while the elementwise form fuses into the surrounding
+ops.
 """
 
 from __future__ import annotations
@@ -27,12 +27,12 @@ from tpustomp.robot.model import RobotSpec, PRISMATIC
 
 
 def _mat_mul(a, b):
-    """[..., 3, 3] @ [..., 3, 3] as VPU multiply-add (see module note)."""
+    """[..., 3, 3] @ [..., 3, 3] as elementwise multiply-add (module note)."""
     return jnp.sum(a[..., :, :, None] * b[..., None, :, :], axis=-2)
 
 
 def _mat_vec(R, v):
-    """[..., 3, 3] @ [..., 3] as VPU multiply-add."""
+    """[..., 3, 3] @ [..., 3] as elementwise multiply-add."""
     return jnp.sum(R * v[..., None, :], axis=-1)
 
 
@@ -64,7 +64,7 @@ def fk_frames(robot: RobotSpec, q: jnp.ndarray):
         p_j = p + _mat_vec(R, offset)
         # static skip (RobotSpec.rot_fixed_identity, computed at
         # construction): identity fixed rotations are the common case and
-        # the 3x3 multiply is pure VPU waste
+        # the 3x3 multiply is wasted work
         R_mid = R if robot.rot_fixed_identity else _mat_mul(R, rot_fixed)
         axis_w = _mat_vec(R_mid, axis)
         is_prism = (jtype == PRISMATIC)

@@ -4,7 +4,7 @@ Reference equivalents (SURVEY §3.1): ``StompRobotModel`` (URDF→KDL tree,
 planning groups, collision-point generation, joint limits) and
 ``StompCollisionPoint`` (sphere radius/clearance/offset/parent-joint chain).
 
-TPU-first design: no tree objects in the hot path — a planning group is a
+Design: no tree objects in the hot path — a planning group is a
 *serial chain* flattened to stacked arrays (axes, fixed offsets/rotations,
 limits) plus a sphere set (attach link index, offset in link frame, radius).
 FK over the chain is a `lax.scan` of frame compositions (robot/fk.py), and
@@ -19,7 +19,8 @@ from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+
+from tpustomp.utils import struct
 
 REVOLUTE = 0
 PRISMATIC = 1
@@ -60,27 +61,10 @@ class RobotSpec:
     link_com: jnp.ndarray       # [d, 3] center of mass in the joint frame
     link_inertia: jnp.ndarray   # [d, 3, 3] inertia about the com, joint frame
     # Static (treedef) hint: every joint_rot is exactly identity, so FK can
-    # skip the R @ rot_fixed multiply per joint (~40% of the FK field-ops in
-    # the fused kernel). Computed from concrete values at construction;
-    # True for both built-in arms and most URDF chains with zero rpy.
+    # skip the R @ rot_fixed multiply per joint. Computed from concrete
+    # values at construction; True for both built-in arms and most URDF
+    # chains with zero rpy.
     rot_fixed_identity: bool = struct.field(pytree_node=False, default=False)
-    # Static per-joint body partition: body_counts[j] = number of sphere
-    # bodies riding joint j's frame, with the body arrays LINK-SORTED
-    # (enforced by _spec). Lets the fused kernel unroll the joint loop and
-    # evaluate each link's bodies inline while the frame is live in
-    # registers — no frames scratch round-trip (measured 17% kernel win).
-    # None = unknown ordering (kernel falls back to the rolled/staged form).
-    body_counts: tuple | None = struct.field(pytree_node=False, default=None)
-    # Static per-joint (type, ax, ay, az) mirror of joint_type/joint_axis,
-    # as plain Python numbers. Lets the fused kernel specialize the unrolled
-    # FK at trace time: axis components that are exactly 0/±1 fold out of
-    # the Rodrigues composition. Bitwise-identical to the general kernel on
-    # real TPU (Mosaic does not FMA-contract; measured diff 0.0); interpret
-    # mode drifts ~1 ULP/joint (XLA CPU FMA reassociation — see
-    # build_unrolled_kernel docstring). Measured 14% off the kernel stage
-    # on v5e. All built-in robots and typical URDF arms are axis-aligned.
-    # None -> the kernel reads type/axis from SMEM at runtime.
-    joint_static: tuple | None = struct.field(pytree_node=False, default=None)
 
     @property
     def num_joints(self) -> int:
@@ -97,15 +81,6 @@ def _spec(joint_axis, joint_offset, joint_rot, lower, upper, limited,
           link_inertia=None, ee_offset=None) -> RobotSpec:
     d = len(joint_axis)
     f32 = jnp.float32
-    # link-sort the bodies (stable) so the fused kernel can consume them as
-    # one contiguous run per joint; cost order is irrelevant (sums/mins)
-    body_link = np.asarray(body_link, np.int32).reshape(-1)
-    if body_link.size:
-        order = np.argsort(body_link, kind="stable")
-        body_link = body_link[order]
-        body_offset = np.asarray(body_offset, np.float32).reshape(-1, 3)[order]
-        body_radius = np.asarray(body_radius, np.float32).reshape(-1)[order]
-    counts = tuple(int(np.sum(body_link == j)) for j in range(d))
     return RobotSpec(
         joint_type=jnp.asarray(
             joint_type if joint_type is not None else [REVOLUTE] * d, jnp.int32),
@@ -119,9 +94,9 @@ def _spec(joint_axis, joint_offset, joint_rot, lower, upper, limited,
         base_rot=jnp.asarray(base_rot if base_rot is not None else np.eye(3), f32),
         ee_offset=jnp.asarray(
             ee_offset if ee_offset is not None else [0, 0, 0], f32),
-        body_link=jnp.asarray(body_link, jnp.int32),
-        body_offset=jnp.asarray(body_offset, f32),
-        body_radius=jnp.asarray(body_radius, f32),
+        body_link=jnp.asarray(body_link, jnp.int32).reshape(-1),
+        body_offset=jnp.asarray(body_offset, f32).reshape(-1, 3),
+        body_radius=jnp.asarray(body_radius, f32).reshape(-1),
         link_mass=jnp.asarray(
             link_mass if link_mass is not None else np.zeros(d), f32),
         link_com=jnp.asarray(
@@ -132,14 +107,6 @@ def _spec(joint_axis, joint_offset, joint_rot, lower, upper, limited,
         rot_fixed_identity=bool(
             np.allclose(np.asarray(joint_rot, np.float64),
                         np.broadcast_to(np.eye(3), (d, 3, 3)), atol=0.0)),
-        body_counts=counts,
-        joint_static=tuple(
-            (int(t), float(np.float32(a[0])), float(np.float32(a[1])),
-             float(np.float32(a[2])))
-            for t, a in zip(
-                np.asarray(joint_type if joint_type is not None
-                           else [REVOLUTE] * d, np.int32),
-                np.asarray(joint_axis, np.float32))),
     )
 
 

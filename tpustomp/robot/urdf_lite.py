@@ -301,7 +301,7 @@ def load_urdf_group(xml_text: str, root: str | None = None,
     whole-tree collision geometry — the reference plans the PR2 right arm
     while the torso/head/left arm remain part of the robot.
 
-    Semantics, TPU-first:
+    Semantics:
       - `group_joints` (chain order not required; validated against the
         root→tip path) are the planned DOFs. None = every moving joint on
         the root→tip chain not named in `fixed_positions`.

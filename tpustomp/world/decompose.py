@@ -1,25 +1,16 @@
-"""Occupancy-grid → analytic-box decomposition (voxel worlds on the fused path).
+"""Occupancy-grid → analytic-box decomposition (voxel worlds without gathers).
 
-Why this exists (TPU-first design, round-5 measurement): the voxel-SDF query
-is the one memory-irregular op in the hot loop (SURVEY §8.3 hard part 1).
-On v5e, XLA's gather issues ~55–67M indices/s regardless of row width
-(measured: 1-wide 67M/s, 8-wide packed 53M/s, 128-wide 39M/s — per-index
-issue-bound, not bandwidth-bound: the 8-wide table moves only 1.6 GB/s
-against ~800 GB/s of HBM), Mosaic's `tpu.dynamic_gather` is lane-aligned and
-shape-locked (unusable for arbitrary 3-D point sampling), and the hybrid
-kernel already does the minimum one index per (body, candidate, timestep)
-sample. That makes the gather a hard floor: ~60 ms per MPC iteration at
-8k-scenario scale, 12× the fused analytic path.
-
-The way around the floor is to stop gathering: decompose the STATIC
-occupancy into maximal axis-aligned boxes and evaluate them as SMEM-resident
-primitives inside the fused kernel at VPU rate (~15 flops per box per
-sample). A voxelized tabletop is exactly 2 boxes; typical collision-map
-scenes decompose to tens–hundreds. At ≤~100 boxes the fused kernel beats
-the gather by an order of magnitude.
+Why this exists: the voxel-SDF query is the one memory-irregular op in the
+hot loop (SURVEY §8.3 hard part 1) — one table gather per (body, candidate,
+waypoint) sample. For a STATIC occupancy there is another way: decompose it
+into maximal axis-aligned boxes and evaluate them as analytic primitives
+(~15 flops per box per sample, no gather). A voxelized tabletop is exactly
+2 boxes; typical collision-map scenes decompose to tens–hundreds. Which of
+the two is faster on a given device and scene is a measurement
+(ROADMAP S5), not a rule.
 
 Reference equivalent: none — the reference always queries the voxel
-`distance_field` (SURVEY §3.2). This is a world *compilation* step the TPU
+`distance_field` (SURVEY §3.2). This is a world *compilation* step this
 design adds; `world/sdf.GridSDF` remains the exact-parity path.
 
 Accuracy contract (document before swapping worlds):

@@ -4,7 +4,7 @@ Reference equivalent (SURVEY §3.2): the ``distance_field`` package's
 ``PropagationDistanceField`` — a voxel grid incrementally propagating
 Euclidean distances from obstacle cells, fed by collision-map ROS topics.
 
-TPU-first split: all construction is *offline host work* (the reference also
+Split: all construction is *offline host work* (the reference also
 rebuilds its field outside the optimizer hot loop); the device only ever sees
 the finished [X,Y,Z] float32 grid (world/sdf.py). Builders:
 

@@ -14,7 +14,7 @@ import threading
 
 import numpy as np
 
-_LIB_NAME = "libtpustomp_native.so"
+_LIB_NAME = "libstomp_edt.so"
 _lock = threading.Lock()
 _lib = None
 _tried = False

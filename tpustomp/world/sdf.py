@@ -5,7 +5,7 @@ Reference equivalents (SURVEY §3.1/§3.2): ``StompCollisionSpace`` owning a
 finite-difference gradient query at a 3-D point, world population from
 collision maps / static cuboids).
 
-TPU-first design:
+Design:
   - `GridSDF`: a dense [X,Y,Z] float32 grid. Query = one flat gather of the 8
     cell corners per point + trilinear weights; the gradient is the *analytic*
     gradient of the trilinear interpolant (exact for the interpolated field,
@@ -25,7 +25,8 @@ Both implement `sdf(world, points)` / `sdf_grad(world, points)` with points
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+
+from tpustomp.utils import struct
 
 
 @struct.dataclass
@@ -68,10 +69,9 @@ class GridSDF:
 
     `packed` is an optional [X*Y*Z, 8] corner table: row i stores the 8 cell
     corners G[x+dx, y+dy, z+dz] of flat cell i, so one trilinear sample is a
-    SINGLE row gather instead of eight scalar gathers. TPU gather throughput
-    is per-index, not per-byte — measured 7.1x faster (50 ms vs 359 ms for
-    4.75M samples on v5e) at an 8x grid-memory cost. Built once on host
-    (`GridSDF.make`); pass packed=None to trade the speed back for memory.
+    SINGLE row gather instead of eight scalar gathers, at an 8x grid-memory
+    cost. Built once on host (`GridSDF.make`); pass packed=None to trade the
+    gather count back for memory.
     """
 
     grid: jnp.ndarray        # [X, Y, Z] float32 signed distance (meters)
@@ -111,7 +111,7 @@ class CompositeWorld:
     Reference equivalent: ``distance_field::PropagationDistanceField``'s
     *incremental* updates — the reference re-propagates distances from
     changed obstacle cells so a grid world can change between queries
-    (SURVEY §3.2). The TPU-native answer splits the world by rate of
+    (SURVEY §3.2). This design splits the world by rate of
     change instead: geometry that changes per control tick (MPC moving
     obstacles, BASELINE config 5) lives in the analytic `overlay` whose
     update is a pytree replace (zero rebuild, zero transfer), while the
@@ -177,8 +177,8 @@ def _grid_sample(world: GridSDF, p: jnp.ndarray):
     base = (i0[..., 0] * Y + i0[..., 1]) * Z + i0[..., 2]
 
     if world.packed is not None:
-        # one 8-wide row gather per sample (class docstring: 7x faster on TPU
-        # than eight scalar gathers)
+        # one 8-wide row gather per sample instead of eight scalar gathers
+        # (class docstring)
         rows = jnp.take(world.packed, base, axis=0)           # [..., 8]
         (c000, c001, c010, c011, c100, c101, c110, c111) = (
             rows[..., 0], rows[..., 1], rows[..., 2], rows[..., 3],
